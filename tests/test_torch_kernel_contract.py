@@ -1,0 +1,212 @@
+"""What can be held about the CUDA kernel without a GPU.
+
+The kernel cannot call the Python row functions, so every registry id,
+salt and flag is written out again in ``csrc/lock_sim_consts.cuh``.  These
+tests parse that header and hold it to the port's ``policy.py`` — a
+registry row added without a kernel arm fails here — and pin the package
+rules: the port imports neither ``jax`` nor ``repro``, and a CUDA-device
+call without CUDA raises instead of running on the CPU.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+# tiny tensors: intra-op threads only contend with the other test workers
+torch.set_num_threads(1)
+
+from repro_torch.core import policy as P
+from repro_torch.core import xdes
+from repro_torch.kernels import lock_sim as K
+from repro_torch.kernels import ref
+
+ROOT = Path(__file__).resolve().parents[1]
+_DECL = re.compile(
+    r"^constexpr\s+(int|unsigned|float)\s+(\w+)\s*=\s*([^;]+);", re.M)
+
+
+def _parse_consts():
+    out = {}
+    for ctype, name, value in _DECL.findall(
+            (K.CSRC / "lock_sim_consts.cuh").read_text()):
+        value = value.strip()
+        if ctype == "float":
+            out[name] = float(value.rstrip("f"))
+        else:
+            out[name] = int(value.rstrip("u"), 0)
+    return out
+
+
+CONSTS = _parse_consts()
+
+POLICY_CONST = {"tas": "TAS", "ttas": "TTAS", "mcs": "MCS", "sleep": "SLEEP",
+                "adaptive": "ADAPTIVE", "mutable": "MUTABLE", "fifo": "FIFO",
+                "fissile": "FISSILE", "hapax": "HAPAX",
+                "ttas_backoff": "TTAS_BACKOFF"}
+FLAG_CONST = dict(zip(P.DISCIPLINE_FLAG_ATTRS,
+                      ("F_HANDOFF", "F_FIFO", "F_BUDGET", "F_W2S",
+                       "F_REPARK", "F_WINDOWED", "F_BSCALED", "F_BACKOFF")))
+
+
+def test_header_parses():
+    assert len(CONSTS) > 70
+    src = (K.CSRC / "lock_sim_block.cu").read_text()
+    assert '#include "lock_sim_consts.cuh"' in src
+    assert "lock_sim_block_launch" in src
+
+
+@pytest.mark.parametrize("name,value", [
+    ("ST_NCS", P.NCS), ("ST_CS", P.CS), ("ST_SPIN", P.SPIN),
+    ("ST_SLEEP", P.SLEEP_ST), ("ST_WAKING", P.WAKING), ("ST_DONE", P.DONE),
+    ("BO_SALT", P.BO_SALT), ("WL_PHASE_SALT", P.WL_PHASE_SALT),
+    ("WL_SPREAD_SALT", P.WL_SPREAD_SALT), ("TB_SALT", P.TB_SALT),
+    ("FLT_GATE_SALT", P.FLT_GATE_SALT), ("FLT_WAKE_SALT", P.FLT_WAKE_SALT),
+    ("FLT_MAG_SALT", P.FLT_MAG_SALT), ("EWMA_ONE", P.EWMA_ONE),
+    ("EWMA_SHIFT", P.EWMA_SHIFT), ("BO_CAP", P.BO_CAP),
+    ("NO_TICKET", ref.NO_TICKET), ("AR_CLOSED", P.AR_CLOSED),
+    ("MAX_T", K.MAX_THREADS),
+])
+def test_scalar_constants_equal(name, value):
+    assert CONSTS[name] == value
+
+
+def test_rem_eps_equal_in_float32():
+    assert np.float32(CONSTS["REM_EPS"]) == np.float32(ref.REM_EPS)
+
+
+@pytest.mark.parametrize("prefix,table", [
+    ("POLICY_", {POLICY_CONST[n]: i for n, i in P.POLICY_IDS.items()}),
+    ("ORACLE_", {n.upper(): i for n, i in P.ORACLE_IDS.items()}),
+    ("WL_", {n.upper(): i for n, i in P.WORKLOAD_IDS.items()}),
+    ("FAULT_", {n.upper(): i for n, i in P.FAULT_IDS.items()}),
+    ("TB_", {n.upper(): i for n, i in P.TIE_BREAK_IDS.items()}),
+])
+def test_id_tables_equal(prefix, table):
+    """Every registry id has a constant of the same value, and the header
+    holds no id the registry lacks."""
+    salts = {"WL_PHASE_SALT", "WL_SPREAD_SALT", "TB_SALT"}
+    mine = {k[len(prefix):]: v for k, v in CONSTS.items()
+            if k.startswith(prefix) and k not in salts}
+    assert mine == table
+
+
+@pytest.mark.parametrize("column,count,registry", [
+    ("policy", "N_POLICY", P.POLICY_IDS), ("oracle", "N_ORACLE", P.ORACLE_IDS),
+    ("workload", "N_WORKLOAD", P.WORKLOAD_IDS),
+    ("fault", "N_FAULT", P.FAULT_IDS), ("tb", "N_TIE_BREAK", P.TIE_BREAK_IDS),
+])
+def test_wrapper_admits_exactly_the_registry(column, count, registry):
+    assert K.KERNEL_IDS[column] == frozenset(registry.values())
+    assert CONSTS[count] == len(registry)
+
+
+def test_wrapper_admits_only_the_closed_arrival_row():
+    assert K.KERNEL_IDS["arrival"] == frozenset({P.AR_CLOSED})
+    assert set(P.ARRIVAL_IDS.values()) - K.KERNEL_IDS["arrival"]   # later
+
+
+@pytest.mark.parametrize("lock", sorted(P.POLICY_IDS))
+def test_discipline_row_word(lock):
+    """ROW_<LOCK> = flags | arrival rule << 8 | quota rule << 12, derived
+    here from the registry row the policy id belongs to."""
+    row = P.POLICY_ROW[P.POLICY_IDS[lock]]
+    flags = sum(CONSTS[FLAG_CONST[a]] for a in P.DISCIPLINE_FLAG_ATTRS
+                if getattr(row, a))
+    arrive = CONSTS["ARRIVE_" + row.arrival_sleeps.__name__
+                    .removeprefix("_arrive_").upper()]
+    quota = CONSTS["QUOTA_" + row.quota.__name__
+                   .removeprefix("_quota_").upper()]
+    assert CONSTS["ROW_" + POLICY_CONST[lock]] == \
+        flags | arrive << 8 | quota << 12
+    assert [CONSTS[FLAG_CONST[a]] for a in P.DISCIPLINE_FLAG_ATTRS] == \
+        [1 << i for i in range(8)]
+
+
+def test_kernel_context_is_block_context_minus_open_columns():
+    names = tuple(n for n, _ in K._KERNEL_CTX)
+    assert names == tuple(n for n in ref.BLOCK_CONTEXT
+                          if n not in ("arrival", "arr_rate", "q_cap", "slo"))
+    assert ref.BLOCK_CONTEXT[5:] == ref.TRANSITION_CONTEXT[2:]
+    assert xdes._PRM_FIELDS == ref.TRANSITION_CONTEXT[2:]
+    assert K.NVCC_FLAGS.count("-fmad=false") == 1
+    assert "arch=compute_90a,code=sm_90a" in K.NVCC_FLAGS
+    assert not any("fast" in f for f in K.NVCC_FLAGS)
+
+
+def test_check_id_columns():
+    col = lambda *v: torch.tensor(v, dtype=torch.int32)
+    ok = dict(policy=col(0, 9), oracle=col(0, 3), workload=col(3, 0),
+              fault=col(4, 0), tb=col(0, 1), arrival=col(0, 0))
+    K.check_id_columns(**ok)
+    for name, bad in (("policy", 10), ("oracle", 4), ("workload", -1),
+                      ("fault", 5), ("tb", 2)):
+        with pytest.raises(ValueError, match=name):
+            K.check_id_columns(**{**ok, name: col(0, bad)})
+    with pytest.raises(NotImplementedError, match="open-loop"):
+        K.check_id_columns(**{**ok, "arrival": col(0, 1)})
+
+
+def test_import_pulls_in_neither_jax_nor_repro():
+    code = ("import sys; import repro_torch; import repro_torch.core.xdes; "
+            "import repro_torch.core.policy; import repro_torch.kernels.ref; "
+            "import repro_torch.kernels.lock_sim; "
+            "import repro_torch.configs.catalog; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
+            "m.startswith('repro.') or m == 'triton']; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={**os.environ,
+                               "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_import_of_jax_or_repro_in_the_sources():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py")) \
+        + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 9
+    assert not [f for f in files if pat.search(f.read_text())]
+
+
+def test_cuda_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    cfg = P.SimConfig("mutable", 4, 4, (0.0, 3.7e-6), (0.0, 3.7e-6))
+    for device in (None, "cuda", torch.device("cuda:0")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            xdes.simulate_batch([cfg], n_steps=8, device=device)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        xdes.columns_from_numpy({"x": np.zeros(2, np.float32)}, None)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """Argument checks that run before any launch, driven with meta
+    tensors (a CUDA device type without a CUDA runtime)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    cfgs = [P.SimConfig("mutable", 4, 4, (0.0, 3.7e-6), (0.0, 3.7e-6))]
+    arrs = P.encode_configs(cfgs)
+    arrs["dt"], _ = xdes.plan_schedule(cfgs, 10)
+    cols = xdes.columns_from_numpy(arrs, "cpu")
+    state = xdes._init_state(cols, 4)
+    args = (cols["alpha"], cols["cores"],
+            P.discipline_flags(cols["policy"])[2] > 0,
+            *(cols[f] for f in xdes._PRM_FIELDS))
+    with pytest.raises(NotImplementedError, match="open-loop"):
+        K.lock_sim_block(*state, 0, *args, n_sub_steps=4, open_state=())
+    meta = lambda t: t.to("meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        K.lock_sim_block(*map(meta, state), 0, *map(meta, args),
+                         n_sub_steps=4)
+    # the CPU path never counts a launch
+    before = K.lock_sim_block.launches
+    out = K.lock_sim_block(*state, 0, *args, n_sub_steps=4, limit=3)
+    assert K.lock_sim_block.launches == before and len(out) == 17
