@@ -1,5 +1,6 @@
 """Lock-simulation sweep specs of the PyTorch port (paper Fig. 3 + the
-beyond-paper scenario, oracle and discipline x oracle sweeps).
+beyond-paper scenario, oracle, discipline x oracle and open-loop arrival
+sweeps, with the array-native column twins the streamed sweep takes).
 
 The port's own copy of the lock part of ``repro/configs/catalog.py``: each
 spec is a list of :class:`repro_torch.core.policy.SimConfig` rows for one
@@ -11,8 +12,10 @@ the reference file is not ported yet.
 
 from __future__ import annotations
 
-from repro_torch.core.policy import (DEFAULT_ALPHA, POLICY_IDS, POLICY_ROW,
-                                     SimConfig)
+from repro_torch.core.policy import (ARRIVAL_IDS, DEFAULT_ALPHA,
+                                     DEFAULT_SPIN_BUDGET, ORACLE_IDS,
+                                     POLICY_IDS, POLICY_ROW, QUEUE_MAX,
+                                     WORKLOAD_IDS, SimConfig)
 
 LOCK_SHORT = (0.0, 3.7e-6)        # paper §4: uniform [0, 3.7) µs
 LOCK_LONG = (0.0, 366e-6)         # uniform [0, 366) µs
@@ -192,3 +195,194 @@ def lock_discipline_sweep(n_scenarios: int = 200, seed: int = 0,
         for v in variants
     ]
 
+
+
+def lock_workload_params(sc: dict) -> dict:
+    """Scenario-scaled workload knobs: the bursty ON/OFF cycle is
+    ``16 x (cs_hi + ncs_hi)`` — ~32 mean CS+NCS rounds, since uniform
+    draws average half their hi — so every sweep horizon sees several
+    phases of each thread's duty cycle regardless of the scenario's
+    timescale; spread and burst factors stay at the registry defaults."""
+    return dict(wl_period=16.0 * (sc["cs_hi"] + sc["ncs_hi"]),
+                wl_duty=0.25, wl_burst=8.0, wl_spread=4.0)
+
+
+# -- arrival-rate x discipline diagram grid (open loop) --------------------
+#: Arrival rows of the open-loop diagram (every non-closed ARRIVAL_ROW).
+LOCK_ARRIVALS = ("poisson", "bursty")
+#: Offered-load axis: fraction ``rho`` of each scenario's closed-form
+#: service capacity, spanning under-load to past saturation (shedding).
+LOCK_ARRIVAL_RHOS = (0.3, 0.6, 0.9, 1.2)
+
+
+def lock_arrival_capacity(sc: dict) -> float:
+    """Closed-form service-capacity estimate of a scenario (requests/s):
+    the lock serializes at one CS per mean CS length, and below that the
+    thread pool turns over a request per mean CS+NCS round per effective
+    worker.  ``rho`` in :func:`lock_arrival_sweep` scales against this."""
+    mean_cs = 0.5 * sc["cs_hi"]
+    mean_round = 0.5 * (sc["cs_hi"] + sc["ncs_hi"])
+    eff = min(sc["threads"], sc["cores"])
+    return min(1.0 / max(mean_cs, 1e-12), eff / max(mean_round, 1e-12))
+
+
+def lock_arrival_params(sc: dict) -> dict:
+    """Scenario-scaled open-loop knobs: the latency SLO sits at 8 mean
+    CS+NCS rounds — generous under light load, violated when queueing
+    sets in — and the bursty arrival gate cycles with the same scenario-
+    scaled period as the workload diagram (several phases per horizon)."""
+    return dict(slo=4.0 * (sc["cs_hi"] + sc["ncs_hi"]),
+                **lock_workload_params(sc))
+
+
+def lock_arrival_variants(arrivals=LOCK_ARRIVALS, rhos=LOCK_ARRIVAL_RHOS,
+                          disciplines=LOCK_DISCIPLINE_SET,
+                          oracles=LOCK_ORACLES) -> list[dict]:
+    """The ``(arrival, rho, discipline, oracle)`` variant axis of the
+    arrival diagram: the discipline x oracle variants (windowed-row
+    pruning of :func:`lock_discipline_variants`) replicated under every
+    (arrival row, offered load) cell, arrival-major then rho."""
+    return [dict(arrival=a, rho=r, **v)
+            for a in arrivals
+            for r in rhos
+            for v in lock_discipline_variants(disciplines, oracles)]
+
+
+def lock_arrival_sweep(n_scenarios: int = 50, seed: int = 0,
+                       arrivals=LOCK_ARRIVALS, rhos=LOCK_ARRIVAL_RHOS,
+                       disciplines=LOCK_DISCIPLINE_SET,
+                       oracles=LOCK_ORACLES) -> list[SimConfig]:
+    """The full arrival x load x discipline x oracle product as one flat
+    batch for a single :func:`repro_torch.core.xdes.simulate_batch` call
+    (open-loop: every row has a non-closed arrival).
+
+    Row order is scenario-major, then arrival, then rho, then
+    (discipline, oracle) variant — reshape to
+    ``(n_scenarios, n_arrivals, n_rhos, n_variants)``.  Scenarios follow
+    the :func:`sample_scenarios` seed contract."""
+    variants = lock_arrival_variants(arrivals, rhos, disciplines, oracles)
+    return [
+        SimConfig(v["lock"], threads=sc["threads"], cores=sc["cores"],
+                  cs=(0.0, sc["cs_hi"]), ncs=(0.0, sc["ncs_hi"]),
+                  wake_latency=sc["wake"],
+                  alpha=sc["contention"] * DEFAULT_ALPHA[v["lock"]],
+                  seed=sc["seed"], oracle=v["oracle"],
+                  arrival=v["arrival"],
+                  arrival_rate=v["rho"] * lock_arrival_capacity(sc),
+                  **lock_arrival_params(sc))
+        for sc in sample_scenarios(n_scenarios, seed)
+        for v in variants
+    ]
+
+
+# -- array-native column twins (the streamed-sweep feed) -------------------
+# Each *_columns twin emits RAW struct-of-arrays columns
+# (repro_torch.core.policy.RAW_CONFIG_FIELDS) directly — no per-config
+# SimConfig objects — for repro_torch.core.stream.sweep_stream.  They equal
+# config_columns of the corresponding list field for field (values and
+# dtypes), so either form feeds the same plans and simulations.
+
+def sample_scenario_columns(n_scenarios: int, seed: int = 0) -> dict:
+    """:func:`sample_scenarios` packed as (S,) column arrays — the same
+    RNG draws in the same order (the seed contract)."""
+    import numpy as np
+
+    sc = sample_scenarios(n_scenarios, seed)
+    return {k: np.asarray([s[k] for s in sc],
+                          np.int64 if k in ("threads", "cores", "seed")
+                          else np.float64)
+            for k in ("threads", "cores", "cs_hi", "ncs_hi", "wake",
+                      "contention", "seed")}
+
+
+def _product_columns(sc: dict, variants: list[dict],
+                     wl: dict | None = None) -> dict:
+    """Scenario-major x variant-minor product as RAW columns: scenario
+    feature columns repeated per variant, variant columns tiled per
+    scenario, ``alpha = contention x DEFAULT_ALPHA[lock]`` per row.
+    ``wl`` optionally carries per-scenario (S,) workload-knob columns
+    (:func:`lock_workload_params` vectorized); missing knobs take the
+    SimConfig defaults."""
+    import numpy as np
+
+    S, V = len(sc["seed"]), len(variants)
+    rep = lambda a, dt: np.repeat(np.asarray(a, dt), V)
+    tile = lambda a: np.tile(a, S)
+    lock_names = [v.get("lock", "mutable") for v in variants]
+    wl = wl or {}
+    wlcol = lambda key, dflt: (rep(wl[key], np.float64) if key in wl
+                               else np.full(S * V, dflt, np.float64))
+    return {
+        "lock": tile(np.asarray([POLICY_IDS[n] for n in lock_names],
+                                np.int32)),
+        "threads": rep(sc["threads"], np.int32),
+        "cores": rep(sc["cores"], np.int32),
+        "cs_lo": np.zeros(S * V, np.float64),
+        "cs_hi": rep(sc["cs_hi"], np.float64),
+        "ncs_lo": np.zeros(S * V, np.float64),
+        "ncs_hi": rep(sc["ncs_hi"], np.float64),
+        "wake_latency": rep(sc["wake"], np.float64),
+        "alpha": rep(sc["contention"], np.float64)
+        * tile(np.asarray([DEFAULT_ALPHA[n] for n in lock_names],
+                          np.float64)),
+        "sws_init": np.ones(S * V, np.int32),
+        "sws_max": tile(np.asarray(
+            [-1 if v.get("sws_max") is None else v["sws_max"]
+             for v in variants], np.int32)),
+        "k": tile(np.asarray([v.get("k", 10) for v in variants],
+                             np.int32)),
+        "spin_budget": np.full(S * V, DEFAULT_SPIN_BUDGET, np.float64),
+        "seed": rep(sc["seed"], np.uint32),
+        "oracle": tile(np.asarray(
+            [ORACLE_IDS[v.get("oracle", "paper")] for v in variants],
+            np.int32)),
+        "workload": tile(np.asarray(
+            [WORKLOAD_IDS[v.get("workload", "constant")]
+             for v in variants], np.int32)),
+        "wl_period": wlcol("wl_period", 1e-4),
+        "wl_duty": wlcol("wl_duty", 0.25),
+        "wl_burst": wlcol("wl_burst", 8.0),
+        "wl_spread": wlcol("wl_spread", 4.0),
+        "arrival_phase": np.zeros(S * V, np.float64),
+    }
+
+
+def lock_discipline_columns(n_scenarios: int = 200, seed: int = 0,
+                            disciplines=LOCK_DISCIPLINE_SET,
+                            oracles=LOCK_ORACLES) -> dict:
+    """Column twin of :func:`lock_discipline_sweep`."""
+    return _product_columns(sample_scenario_columns(n_scenarios, seed),
+                            lock_discipline_variants(disciplines, oracles))
+
+
+def lock_arrival_columns(n_scenarios: int = 50, seed: int = 0,
+                         arrivals=LOCK_ARRIVALS, rhos=LOCK_ARRIVAL_RHOS,
+                         disciplines=LOCK_DISCIPLINE_SET,
+                         oracles=LOCK_ORACLES) -> dict:
+    """Column twin of :func:`lock_arrival_sweep` (capacity, SLO, and the
+    burst-gate knobs of :func:`lock_arrival_params` computed as columns)."""
+    import numpy as np
+
+    sc = sample_scenario_columns(n_scenarios, seed)
+    S = len(sc["seed"])
+    variants = lock_arrival_variants(arrivals, rhos, disciplines, oracles)
+    V = len(variants)
+    wl = dict(wl_period=16.0 * (sc["cs_hi"] + sc["ncs_hi"]),
+              wl_duty=np.full(S, 0.25), wl_burst=np.full(S, 8.0),
+              wl_spread=np.full(S, 4.0))
+    cols = _product_columns(sc, variants, wl)
+    # vectorized lock_arrival_capacity (same float64 ops, same values)
+    mean_cs = 0.5 * sc["cs_hi"]
+    mean_round = 0.5 * (sc["cs_hi"] + sc["ncs_hi"])
+    eff = np.minimum(sc["threads"], sc["cores"]).astype(np.float64)
+    cap = np.minimum(1.0 / np.maximum(mean_cs, 1e-12),
+                     eff / np.maximum(mean_round, 1e-12))
+    cols["arrival"] = np.tile(np.asarray(
+        [ARRIVAL_IDS[v["arrival"]] for v in variants], np.int32), S)
+    cols["arrival_rate"] = (
+        np.tile(np.asarray([v["rho"] for v in variants], np.float64), S)
+        * np.repeat(cap, V))
+    cols["queue_cap"] = np.full(S * V, QUEUE_MAX, np.int32)
+    cols["slo"] = np.repeat(4.0 * (sc["cs_hi"] + sc["ncs_hi"]), V)
+    cols["tie_break"] = np.zeros(S * V, np.int32)
+    return cols

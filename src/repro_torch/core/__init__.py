@@ -1,2 +1,4 @@
-"""Policy registries (:mod:`.policy`) and the batched simulator
-(:mod:`.xdes`) of the PyTorch port."""
+"""Policy registries (:mod:`.policy`), the batched simulator (:mod:`.xdes`)
+and its streamed sweep (:mod:`.stream`) of the PyTorch port, with its copies
+of the threaded mutable lock (:mod:`.mutlock`, :mod:`.atomic`,
+:mod:`.oracle`, :mod:`.waitpolicy`)."""

@@ -113,6 +113,33 @@ EWMA_ONE = 256
 EWMA_SHIFT = 3
 
 
+# --------------------------------------------------------------------------
+# EvalSWS — the paper's oracle (E1-E12) as a pure function
+# --------------------------------------------------------------------------
+def eval_sws_delta(spun: bool, slept: bool, sws: int, cnt: int,
+                   k: int) -> tuple[int, int]:
+    """One EvalSWS observation.  Returns ``(delta, cnt')``.
+
+    ``cnt`` counts consecutive acquisitions without a late wake-up; a late
+    wake-up (``slept and not spun``) doubles the window (E4-E6), ``k`` clean
+    acquisitions shrink it by one (E7-E9).
+    """
+    cnt = cnt + 1                      # E2
+    if slept and not spun:             # E4: late wake-up detected
+        return sws, 0                  # E5-E6: double, reset counter
+    if cnt >= k:                       # E7 (>= guards lost updates)
+        return -1, 0                   # E8-E9
+    return 0, cnt                      # E3/E11
+
+
+def clamp_delta(sws: int, delta: int, lo: int, hi: int) -> int:
+    """A16-A17: clamp so that ``lo <= sws + delta <= hi``."""
+    if sws + delta < lo:
+        delta = lo - sws
+    if sws + delta > hi:
+        delta = hi - sws
+    return delta
+
 
 # --------------------------------------------------------------------------
 # Oracle family rows — branch-free, integer-state pure functions.
@@ -202,6 +229,64 @@ def oracle_update(oracle_id, spun, slept, sws, cnt, ewma, k):
         cnt1 = cnt1 + sel * c
         ewma1 = ewma1 + sel * e
     return delta, cnt1, ewma1
+
+
+# --------------------------------------------------------------------------
+# Arrival / release decisions (A7, R2-R21)
+# --------------------------------------------------------------------------
+def should_sleep_on_arrival(thc_pre: int, sws: int) -> bool:
+    """A7: a thread arriving at index ``thc_pre`` (holder at 0) sleeps iff
+    it lands outside the spinning window."""
+    return thc_pre >= sws
+
+
+def wake_correction(delta: int, thc: int, sws_pre: int) -> int:
+    """C1/C2 wake-up-count correction (A23-A33), the signed increment to
+    ``wuc`` after a resize ``sws_pre -> sws_pre + delta``.
+
+    C1 (grow with sleepers, A27-A28): threads that went to sleep because
+    the window was full would now fit — wake up to ``delta`` of them.
+    C2 (shrink with excess spinners, A25-A26): more threads are inside the
+    window than it now holds — suppress up to ``-delta`` future wake-ups.
+    """
+    sws_post = sws_pre + delta
+    if delta < 0 and thc > sws_post:             # A25: C2
+        tmp = thc - sws_post                     # A26
+    elif delta > 0 and thc > sws_pre:            # A27: C1
+        tmp = thc - sws_pre                      # A28
+    else:
+        tmp = 0                                  # A30
+    sign = 1 if delta > 0 else -1                # A24
+    return sign * min(abs(delta), tmp)           # A32
+
+
+def latch_wuc(wuc: int) -> tuple[int, int]:
+    """RELEASE lines R2-R7: latch the wake-up count at release time.
+
+    Returns ``(r_wuc, wuc')``.  ``r_wuc < 0`` means this release is
+    suppressed by a pending C2 correction (R6-R7, R11-R12) and must issue
+    no wake-up at all.  Latching happens *before* the lock is handed off /
+    unlocked, so corrections appended by the next acquirer belong to the
+    next release.
+    """
+    if wuc >= 0:                                 # R2
+        return wuc, 0                            # R3-R4
+    return -1, wuc + 1                           # R6-R7: C2 suppression
+
+
+def release_quota(r_wuc: int, thc_pre: int, sws: int) -> int:
+    """RELEASE lines R11-R17: permits actually issued by this release.
+
+    ``r_wuc`` is the latched value from :func:`latch_wuc`; ``thc_pre`` the
+    thread count before the releaser's decrement (R9/R14); ``sws`` the
+    window at R16 (post-handoff).  Adds the +1 sleep->spin promotion when
+    sleepers exist (R16-R17); a suppressed release issues nothing.
+    """
+    if r_wuc < 0:                                # R11-R12
+        return 0
+    if thc_pre > sws:                            # R16: sleepers exist
+        r_wuc += 1                               # R17: sleep->spin
+    return r_wuc                                 # R19
 
 
 # --------------------------------------------------------------------------
@@ -826,6 +911,38 @@ def arrival_mean_scale(arrival_id, duty, burst):
     closed = (arrival_id == AR_CLOSED) * 1.0
     bursty = (arrival_id == AR_BURSTY) * 1.0
     return (1.0 - closed) * (1.0 + bursty * duty * (burst - 1.0))
+
+
+def latency_bin_edges():
+    """The ``LAT_NBINS + 1`` histogram bin edges in seconds (float64).
+    Bin ``i`` covers ``[edges[i], edges[i+1])``; the first and last bins
+    additionally absorb underflow/overflow (the kernel clips)."""
+    import numpy as np
+
+    return LAT_BIN0 * 2.0 ** (np.arange(LAT_NBINS + 1, dtype=np.float64)
+                              / LAT_BINS_PER_OCTAVE)
+
+
+def latency_percentiles(hist, qs=(0.50, 0.95, 0.99)):
+    """Per-config latency percentiles from ``(..., LAT_NBINS)`` histogram
+    counts: the geometric midpoint of the bin containing each quantile
+    (the histogram is the exact on-device record; within-bin position is
+    unknowable, so the midpoint is the canonical readout — bins are a
+    factor sqrt(2) wide).  Returns one array per ``q``; NaN where no
+    request departed."""
+    import numpy as np
+
+    hist = np.asarray(hist, np.int64)
+    edges = latency_bin_edges()
+    mids = np.sqrt(edges[:-1] * edges[1:])
+    tot = hist.sum(axis=-1)
+    cum = np.cumsum(hist, axis=-1)
+    out = []
+    for q in qs:
+        target = np.ceil(q * np.maximum(tot, 1)).astype(np.int64)[..., None]
+        idx = np.argmax(cum >= target, axis=-1)
+        out.append(np.where(tot > 0, mids[idx], np.nan))
+    return out
 
 
 

@@ -1,8 +1,11 @@
 """xdes — batched, fixed-timestep simulation of lock disciplines on PyTorch.
 
-The port of ``repro/core/xdes.py``'s closed-loop path: thousands of
+The port of ``repro/core/xdes.py``: thousands of
 :class:`repro_torch.core.policy.SimConfig` rows simulated in one device
-program, a generalized-processor-sharing step on a fixed timestep.
+program, a generalized-processor-sharing step on a fixed timestep, closed
+loop or with open-loop arrivals (a config whose ``arrival`` row is not
+``closed`` draws requests into a bounded queue, binds them to free thread
+slots and records each request's latency in an on-device histogram).
 
 The rollout is **time-blocked** (``rollout="blocked"``, the default): a
 host loop whose body is ONE kernel launch per ``block_steps`` timesteps
@@ -21,9 +24,8 @@ when there is none.  Pass ``device="cpu"`` to run the plain versions on the
 host, as the tests do.
 
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-open-arrival configs (the open variant of the block kernel and
-``core/stream.py``), ``shard=True`` (the multi-GPU config-axis split), and
-``rollout="scan"`` on the kernel backend (the per-step kernels).
+``shard=True`` (the multi-GPU config-axis split) and ``rollout="scan"`` on
+the kernel backend (the per-step kernels).
 """
 
 from __future__ import annotations
@@ -55,11 +57,9 @@ _PRM_FIELDS = ("policy", "threads", "dt", "wake", "cs_lo", "cs_hi",
 
 _CTR = ref.BLOCK_STATE.index("ctr")
 
-_OPEN_LATER = ("open-arrival configs are not ported yet: they land with "
-               "the open-loop slice (open variant of lock_sim_block + "
-               "core/stream.py)")
 _SHARD_LATER = ("shard=True is not ported yet: the multi-GPU config-axis "
-                "split lands after the single-card path is whole")
+                "split (ROADMAP.md M7) lands after the single-card path is "
+                "whole")
 _SCAN_KERNEL_LATER = ("rollout='scan' on the kernel backend needs the "
                       "per-step kernels (lock_sim_step, "
                       "lock_transitions_step), which are not ported yet; "
@@ -97,12 +97,14 @@ def columns_from_numpy(arrs: dict, device) -> dict:
 
 
 def state_from_numpy(state, device) -> tuple:
-    """The 17-array carry (numpy, ``ctr`` uint32) as tensors on
-    ``device``, ``ctr`` as its int32 bit pattern."""
+    """The 17-array carry, or the 28-array open-loop carry (numpy, ``ctr``
+    uint32), as tensors on ``device``, ``ctr`` as its int32 bit pattern."""
     device = resolve_device(device)
-    if len(state) != len(ref.BLOCK_STATE):
-        raise ValueError(f"expected the {len(ref.BLOCK_STATE)}-array closed "
-                         f"carry, got {len(state)} arrays")
+    n_closed = len(ref.BLOCK_STATE)
+    if len(state) not in (n_closed, n_closed + len(ref.OPEN_STATE)):
+        raise ValueError(f"expected the {n_closed}-array closed carry or "
+                         f"the {n_closed + len(ref.OPEN_STATE)}-array open "
+                         f"one, got {len(state)} arrays")
     return tuple(torch.from_numpy(_as_i32_bits(a)).to(device)
                  for a in state)
 
@@ -117,11 +119,17 @@ def state_to_numpy(state) -> tuple:
 # --------------------------------------------------------------------------
 # The rollout
 # --------------------------------------------------------------------------
-def _init_state(cols, T: int):
+def _init_state(cols, T: int, open_loop: bool = False):
     """The 17-array carry (16 transition-state arrays + spin_cpu): every
     thread starts in NCS with a fresh workload-row duration draw plus the
     seeded arrival-order phase offset
-    (:func:`repro_torch.kernels.ref.workload_init_rem`)."""
+    (:func:`repro_torch.kernels.ref.workload_init_rem`).
+
+    With ``open_loop=True`` the 11 OPEN_STATE arrays are appended and the
+    threads of open-arrival configs start DONE with no request bound
+    (``rem = inf``, ``req_t = -1``): the population is empty until
+    requests arrive.  Closed configs in the same batch circulate from
+    step 0 exactly as in the closed-loop engine."""
     C = cols["policy"].shape[0]
     dev = cols["policy"].device
     i32, f32 = torch.int32, torch.float32
@@ -136,10 +144,13 @@ def _init_state(cols, T: int):
     inf = torch.tensor(float("inf"), dtype=f32, device=dev)
     zc = lambda dtype=i32: torch.zeros((C,), dtype=dtype, device=dev)
     zt = lambda: torch.zeros((C, T), dtype=i32, device=dev)
-    return (
+    circulate = active
+    if open_loop:
+        circulate = active & (cols["arrival"][:, None] == P.AR_CLOSED)
+    state = (
         torch.full((C, T), P.DONE, dtype=i32,
-                   device=dev).masked_fill(active, P.NCS),    # st
-        torch.where(active, rem0, inf).contiguous(),          # rem
+                   device=dev).masked_fill(circulate, P.NCS),  # st
+        torch.where(circulate, rem0, inf).contiguous(),        # rem
         torch.full((C, T), float("inf"), dtype=f32, device=dev),  # wake_at
         zt(),                                                 # slept
         zt(),                                                 # spun
@@ -151,12 +162,22 @@ def _init_state(cols, T: int):
         #                                    nticket completed wake_count
         zc(f32),                                              # spin_cpu
     )
+    if not open_loop:
+        return state
+    return state + (
+        torch.full((C, T), -1.0, dtype=f32, device=dev),      # req_t
+        torch.zeros((C, P.QUEUE_MAX), dtype=f32, device=dev),  # qbuf
+        torch.zeros((C, P.LAT_NBINS), dtype=i32, device=dev),  # hist
+        zc(), zc(), zc(), zc(), zc(), zc(),   # qhead qlen arrived shed
+        #                                       departed slo_viol
+        zc(f32), zc(f32),                                     # lat_sum occ_int
+    )
 
 
 def _out_dict(state, executed: int, cols, keep_per_thread: bool = True):
     (st, rem, wake_at, slept, spun, ctr, ticket, completed_pt,
      sws, cnt, ewma, wuc, permits, nticket, completed, wake_count,
-     spin_cpu) = state
+     spin_cpu) = state[:17]
     ex = torch.tensor(int(executed), dtype=torch.int32,
                       device=completed.device)
     out = {
@@ -167,6 +188,17 @@ def _out_dict(state, executed: int, cols, keep_per_thread: bool = True):
         "t_end": ex.to(torch.float32) * cols["dt"],
         "steps_run": ex.expand(completed.shape).clone(),
     }
+    if len(state) > 17:          # open-loop run: the 11 OPEN_STATE arrays
+        (req_t, qbuf, hist, qhead, qlen, arrived, shed, departed,
+         slo_viol, lat_sum, occ_int) = state[17:]
+        T = req_t.shape[1]
+        tid = torch.arange(T, dtype=torch.int32,
+                           device=completed.device)[None, :]
+        act = tid < cols["threads"][:, None]
+        busy = (act & (req_t >= 0.0)).sum(-1).to(torch.int32)
+        out.update(lat_hist=hist, arrived=arrived, shed=shed,
+                   departed=departed, slo_viol=slo_viol, lat_sum=lat_sum,
+                   occ_int=occ_int, in_flight=qlen + busy)
     if keep_per_thread:
         out["completed_per_thread"] = completed_pt
     else:
@@ -187,7 +219,7 @@ def _simulate_core(cols, n_steps: int, T: int, backend: str = "kernel",
                    rollout: str = "blocked",
                    block_steps: int = DEFAULT_BLOCK_STEPS,
                    target_cs: int = 0, early_exit: bool | None = None,
-                   keep_per_thread: bool = True):
+                   keep_per_thread: bool = True, open_loop: bool = False):
     """Simulate ``n_steps`` timesteps of every config; returns the output
     dict of tensors (on the columns' device).
 
@@ -198,10 +230,12 @@ def _simulate_core(cols, n_steps: int, T: int, backend: str = "kernel",
     ``target_cs`` critical sections; the test is one device-to-host read
     per block.  ``early_exit=None`` means on iff ``target_cs > 0``.
     ``rollout="scan"``: one advance / rewind / transition triple per step
-    on the plain versions, no early exit — the parity reference."""
+    on the plain versions, no early exit — the parity reference.
+    ``open_loop=True`` carries the 11 OPEN_STATE arrays as well (28 in
+    all) on every rollout and backend."""
     n_steps = int(n_steps)
     has_budget = P.discipline_flags(cols["policy"])[2] > 0
-    state = _init_state(cols, T)
+    state = _init_state(cols, T, open_loop)
     prm = tuple(cols[f] for f in _PRM_FIELDS)
     if early_exit is None:
         early_exit = target_cs > 0
@@ -214,6 +248,7 @@ def _simulate_core(cols, n_steps: int, T: int, backend: str = "kernel",
             raise NotImplementedError(_SCAN_KERNEL_LATER)
         dt = cols["dt"]
         spin_cpu = state[16]
+        ostate = state[17:] if open_loop else None
         state = state[:16]
         for step in range(n_steps):
             st, rem = state[0], state[1]
@@ -225,17 +260,20 @@ def _simulate_core(cols, n_steps: int, T: int, backend: str = "kernel",
             rem = ref.fault_rewind(st, rem, cols["alpha"], cols["cores"],
                                    dt, i_f * dt, cols["seed"], cols["fault"],
                                    cols["flt_rate"], cols["flt_scale"])
-            state = ref.lock_transitions_ref(st, rem, *state[2:], now2, i,
-                                             *prm)
+            out = ref.lock_transitions_ref(st, rem, *state[2:], now2, i,
+                                           *prm, open_state=ostate)
+            state, ostate = out[:16], (out[16:] if open_loop else None)
             spin_cpu = spin_cpu + burn
-        return _out_dict((*state, spin_cpu), n_steps, cols, keep_per_thread)
+        return _out_dict((*state, spin_cpu, *(ostate or ())), n_steps, cols,
+                         keep_per_thread)
 
     if rollout != "blocked":
         raise ValueError(f"unknown rollout {rollout!r} (blocked|scan)")
 
     if backend == "kernel":     # ids checked once here, not per launch
         K.check_id_columns(cols["policy"], cols["oracle"], cols["workload"],
-                           cols["fault"], cols["tb"], cols["arrival"])
+                           cols["fault"], cols["tb"], cols["arrival"],
+                           open_loop=open_loop)
         block = functools.partial(K.lock_sim_block, ids_checked=True)
     else:
         block = ref.lock_sim_block_ref
@@ -243,13 +281,34 @@ def _simulate_core(cols, n_steps: int, T: int, backend: str = "kernel",
     n_blocks = (n_steps + B - 1) // B
     nblk, done = 0, False
     while nblk < n_blocks and not done:
-        state = block(*state, nblk * B, cols["alpha"], cols["cores"],
-                      has_budget, *prm, n_sub_steps=B, limit=n_steps)
+        state = block(*state[:17], nblk * B, cols["alpha"], cols["cores"],
+                      has_budget, *prm, n_sub_steps=B, limit=n_steps,
+                      open_state=state[17:] if open_loop else None)
         nblk += 1
         if early_exit:      # one flag read back per block
             done = bool((state[14] >= target_cs).all())
     executed = min(nblk * B, n_steps)
     return _out_dict(state, executed, cols, keep_per_thread)
+
+
+def simulate_columns(arrs, n_steps: int, *, T: int, backend: str = "kernel",
+                     block_steps: int = DEFAULT_BLOCK_STEPS,
+                     target_cs: int = 0, keep_per_thread: bool = True,
+                     open_loop: bool = False, device=None) -> dict:
+    """One batched run of an encoded column dict (``encode_configs``
+    output plus ``dt``, numpy) through the blocked rollout: the horizon
+    and ``target_cs`` are plain ints, early exit is on iff
+    ``target_cs > 0``.  Returns the output dict as numpy arrays.  This
+    is the streamed sweep's entry (:mod:`repro_torch.core.stream`), the
+    counterpart of the reference's ``_simulate_dyn``."""
+    out = _simulate_core(columns_from_numpy(arrs, device), int(n_steps),
+                         int(T), backend=backend, rollout="blocked",
+                         block_steps=int(block_steps),
+                         target_cs=int(target_cs),
+                         early_exit=int(target_cs) > 0,
+                         keep_per_thread=keep_per_thread,
+                         open_loop=open_loop)
+    return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 # --------------------------------------------------------------------------
@@ -352,6 +411,22 @@ class BatchResult:
     #: (C,) max-min completed-CS spread over active threads, computed on
     #: device when ``keep_per_thread=False``.
     fairness: np.ndarray | None = None
+    #: Open-loop outputs, ``None`` on closed-loop runs: (C, LAT_NBINS)
+    #: per-request latency histogram (log-spaced bins,
+    #: :func:`repro_torch.core.policy.latency_bin_edges`) plus (C,)
+    #: request counters — arrivals offered, shed at the full queue,
+    #: departed, SLO violations among departures — and the exact latency /
+    #: occupancy-integral accumulators behind Little's law
+    #: (``occ_int = ∫L dt``, ``lat_sum = Σ latency``).  ``in_flight`` is
+    #: the end-of-run system occupancy (queued + bound to a thread).
+    lat_hist: np.ndarray | None = None
+    arrived: np.ndarray | None = None
+    shed: np.ndarray | None = None
+    departed: np.ndarray | None = None
+    slo_viol: np.ndarray | None = None
+    lat_sum: np.ndarray | None = None
+    occ_int: np.ndarray | None = None
+    in_flight: np.ndarray | None = None
 
     @property
     def throughput(self) -> np.ndarray:
@@ -361,27 +436,49 @@ class BatchResult:
     def sync_cpu_per_cs(self) -> np.ndarray:
         return self.spin_cpu / np.maximum(self.completed, 1)
 
+    def latency_quantiles(self, qs=(0.50, 0.95, 0.99)) -> np.ndarray:
+        """(len(qs), C) per-request latency percentiles from the on-device
+        histogram (geometric bin midpoints; NaN where nothing departed)."""
+        if self.lat_hist is None:
+            raise ValueError("closed-loop run: no latency histogram")
+        return P.latency_percentiles(self.lat_hist, qs)
+
+    @property
+    def p50(self) -> np.ndarray:
+        return self.latency_quantiles((0.50,))[0]
+
+    @property
+    def p95(self) -> np.ndarray:
+        return self.latency_quantiles((0.95,))[0]
+
+    @property
+    def p99(self) -> np.ndarray:
+        return self.latency_quantiles((0.99,))[0]
+
+    @property
+    def slo_frac(self) -> np.ndarray:
+        """Fraction of departed requests whose latency exceeded the
+        config's SLO (NaN where nothing departed)."""
+        if self.slo_viol is None:
+            raise ValueError("closed-loop run: no SLO accounting")
+        dep = np.asarray(self.departed, np.float64)
+        return np.where(dep > 0, self.slo_viol / np.maximum(dep, 1.0),
+                        np.nan)
+
+    @property
+    def mean_latency(self) -> np.ndarray:
+        """Exact mean departed-request latency (NaN where none departed)."""
+        if self.lat_sum is None:
+            raise ValueError("closed-loop run: no latency accounting")
+        dep = np.asarray(self.departed, np.float64)
+        return np.where(dep > 0, self.lat_sum / np.maximum(dep, 1.0),
+                        np.nan)
+
     def validate(self, where: str = "batch") -> "BatchResult":
-        """Fail loudly on engine non-finites, naming the offending config:
-        throughput, spin CPU, wake counts and windows must be finite for
-        every config.  Returns ``self`` so call sites can chain it."""
-        checks = [("t_end", self.t_end), ("completed", self.completed),
-                  ("spin_cpu", self.spin_cpu),
-                  ("wake_count", self.wake_count),
-                  ("final_sws", self.final_sws),
-                  ("throughput", self.throughput),
-                  ("sync_cpu_per_cs", self.sync_cpu_per_cs)]
-        for name, arr in checks:
-            a = np.asarray(arr, np.float64)
-            badm = ~np.isfinite(a)
-            if badm.any():
-                i = int(np.nonzero(badm)[0][0])
-                cfg = (self.configs[i] if i < len(self.configs)
-                       else "<padded row>")
-                raise ValueError(
-                    f"non-finite {name}={a[i]!r} at config {i} in "
-                    f"{where}: {cfg!r}")
-        return self
+        """Fail loudly on engine non-finites, naming the offending config
+        (:func:`check_finite`).  Returns ``self`` so call sites can chain
+        it."""
+        return check_finite(self, where, self.configs)
 
     def fairness_spread(self, i: int) -> int:
         """Max-min completed-CS spread across config ``i``'s threads —
@@ -403,6 +500,40 @@ class BatchResult:
         }
 
 
+def check_finite(res, where: str, configs=None):
+    """Raise ``ValueError`` on an engine non-finite in the summary of a
+    :class:`BatchResult` or a streamed sweep, naming the first offending
+    config (and its parameters when ``configs`` is given): throughput,
+    spin CPU, wake counts and windows must be finite for every config,
+    and so must the open-loop accumulators.  Latency quantiles,
+    ``mean_latency`` and ``slo_frac`` are NaN by design where no request
+    departed, so they are checked only where ``departed > 0``.  Returns
+    ``res``."""
+    checks = [("t_end", res.t_end), ("completed", res.completed),
+              ("spin_cpu", res.spin_cpu), ("wake_count", res.wake_count),
+              ("final_sws", res.final_sws), ("throughput", res.throughput),
+              ("sync_cpu_per_cs", res.sync_cpu_per_cs)]
+    if res.lat_hist is not None:
+        dep = np.asarray(res.departed, np.int64)
+        mean_lat = np.where(dep > 0, res.lat_sum / np.maximum(dep, 1.0),
+                            np.nan)
+        checks += [("lat_sum", res.lat_sum), ("occ_int", res.occ_int),
+                   ("mean_latency", np.where(dep > 0, mean_lat, 0.0)),
+                   ("slo_frac", np.where(dep > 0, res.slo_frac, 0.0)),
+                   ("p50", np.where(dep > 0, res.p50, 0.0))]
+    for name, arr in checks:
+        a = np.asarray(arr, np.float64)
+        badm = ~np.isfinite(a)
+        if badm.any():
+            i = int(np.nonzero(badm)[0][0])
+            cfg = ("" if configs is None else
+                   f": {configs[i]!r}" if i < len(configs)
+                   else ": <padded row>")
+            raise ValueError(f"non-finite {name}={a[i]!r} at config {i} "
+                             f"in {where}{cfg}")
+    return res
+
+
 def _pad_quantum(n: int) -> int:
     """Next power of two — the config-axis padding quantum of the bucketed
     path, so buckets of nearby sizes land on the same padded shape."""
@@ -411,17 +542,23 @@ def _pad_quantum(n: int) -> int:
 
 _RESULT_FIELDS = ("dt", "t_end", "completed", "spin_cpu", "wake_count",
                   "final_sws", "steps_run")
+#: BatchResult fields of an open-loop run.
+OPEN_RESULT_FIELDS = ("lat_hist", "arrived", "shed", "departed", "slo_viol",
+                      "lat_sum", "occ_int", "in_flight")
 
 
 def _simulate_bucketed(configs, buckets, steps, *, target_cs, dt, backend,
                        max_threads, rollout, block_steps, early_exit,
-                       keep_per_thread, device) -> BatchResult:
+                       keep_per_thread, open_loop, device) -> BatchResult:
     """Run each step-count bucket as its own batched call and stitch the
     per-config results back into the caller's row order.  ``dt`` and
     ``steps`` are the (C,) planned arrays — passed down sliced, so the
     per-bucket calls skip re-planning.  Each bucket's config axis is
     padded to the next power of two (copies of its last row, sliced off
-    again), as the reference does."""
+    again), as the reference does.  ``open_loop`` is resolved once by the
+    caller and forced on every bucket, so a mixed batch whose open configs
+    all land in one bucket still returns open-loop outputs for every
+    row."""
     C = len(configs)
     T = max_threads or max(c.threads for c in configs)
     parts = [simulate_batch(
@@ -431,10 +568,12 @@ def _simulate_bucketed(configs, buckets, steps, *, target_cs, dt, backend,
         backend=backend, max_threads=T, rollout=rollout,
         block_steps=block_steps, early_exit=early_exit,
         bucket_steps=False, keep_per_thread=keep_per_thread,
+        open_loop=open_loop,
         pad_configs=_pad_quantum(len(idx)) if rollout == "blocked"
         else None, device=device) for idx in buckets]
     fields = _RESULT_FIELDS + (("completed_per_thread",) if keep_per_thread
-                               else ("fairness",))
+                               else ("fairness",)) \
+        + (OPEN_RESULT_FIELDS if open_loop else ())
     merged = {}
     for f in fields:
         first = getattr(parts[0], f)
@@ -488,14 +627,20 @@ def simulate_batch(configs, *, target_cs: int = 300,
       the given count (results sliced back); results are unchanged
       because configs are independent.
 
-    ``shard=True`` and open-arrival configs (or ``open_loop=True``) raise
-    ``NotImplementedError``: those slices of the port have not landed.
+    ``open_loop=None`` (auto) switches on the open-loop arrival engine iff
+    any config has a non-closed arrival row; a closed batch carries no
+    OPEN_STATE arrays.  Forcing ``open_loop=True`` on an all-closed batch
+    is valid — the open machinery runs but stays inert (rate 0 admits
+    nothing) and every closed output is unchanged.
+
+    ``shard=True`` raises ``NotImplementedError``: the multi-GPU split has
+    not landed.
     """
     configs = list(configs)
     if shard:
         raise NotImplementedError(_SHARD_LATER)
-    if open_loop or any(c.open_loop for c in configs):
-        raise NotImplementedError(_OPEN_LATER)
+    if open_loop is None:
+        open_loop = any(c.open_loop for c in configs)
     device = resolve_device(device)
     if dt is None or n_steps is None:
         auto_dt, steps_arr = plan_schedule(configs, target_cs)
@@ -516,7 +661,8 @@ def simulate_batch(configs, *, target_cs: int = 300,
                 block_steps=block_steps,
                 # a bucketed horizon is auto-planned: exit by default
                 early_exit=True if early_exit is None else early_exit,
-                keep_per_thread=keep_per_thread, device=device)
+                keep_per_thread=keep_per_thread, open_loop=open_loop,
+                device=device)
     arrs = P.encode_configs(configs)
     if dt is None:
         dt = auto_dt
@@ -550,7 +696,8 @@ def simulate_batch(configs, *, target_cs: int = 300,
     out = _simulate_core(columns_from_numpy(arrs, device), int(n_steps),
                          int(T), backend=backend, rollout=rollout,
                          block_steps=int(block_steps), target_cs=tc,
-                         early_exit=tc > 0, keep_per_thread=keep_per_thread)
+                         early_exit=tc > 0, keep_per_thread=keep_per_thread,
+                         open_loop=bool(open_loop))
     out = {k: v.cpu().numpy()[:C] for k, v in out.items()}
     return BatchResult(configs=configs, n_steps=int(n_steps), backend=backend,
                        dt=np.asarray(dt, np.float32)[:C],
@@ -560,4 +707,5 @@ def simulate_batch(configs, *, target_cs: int = 300,
                        final_sws=out["final_sws"],
                        completed_per_thread=out.get("completed_per_thread"),
                        steps_run=out["steps_run"],
-                       fairness=out.get("fairness"))
+                       fairness=out.get("fairness"),
+                       **{f: out.get(f) for f in OPEN_RESULT_FIELDS})

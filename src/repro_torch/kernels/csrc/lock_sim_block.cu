@@ -1,9 +1,9 @@
 // lock_sim_block for Hopper: n_sub_steps fused timesteps of the batched lock
-// simulator, closed-loop variant.
+// simulator, closed-loop and open-loop variants.
 //
 // Replaces the Pallas TPU kernel repro/kernels/lock_sim.py:lock_sim_block
-// (_block_kernel); computes the same function as
-// repro_torch/kernels/ref.py:lock_sim_block_ref, stage for stage.
+// (_block_kernel, both values of its static open_run flag); computes the same
+// function as repro_torch/kernels/ref.py:lock_sim_block_ref, stage for stage.
 //
 // Design.  One warp owns one config row; a lane owns the simulated threads
 // tid = slot * 32 + lane for slot < NS = ceil(T / 32), so T <= 128.  All
@@ -24,6 +24,16 @@
 // not by bytes.  Keeping the state in registers for the whole block is what
 // keeps the bytes to one read and one write.
 //
+// Open variant (template flag OPEN, the reference's open_state): each warp
+// keeps its row's request ring qbuf[QUEUE_MAX] f32 and latency histogram
+// hist[LAT_NBINS] i32 in shared memory (768 B per warp), loaded once per
+// launch and stored once; the binding gather `take_along_axis(qbuf, qpos)`
+// is a per-lane shared-memory read.  req_t sits in registers beside rem, the
+// per-config queue counters are warp-uniform registers.  It adds the 11
+// open-state arrays to the bytes moved per launch and the admission /
+// departure / binding stages to the work of a sub-step; the bound is still
+// operations.  The closed instantiation's code is untouched by the flag.
+//
 // Numerics.  Built with -fmad=false and without fast-math: `rem - dt*rate`,
 // `lo + u*(hi-lo)`, `now2 + wake_eff` feed `<=` tests, and a contracted FMA
 // differs by one ulp from the plain version's separate multiply and add,
@@ -31,6 +41,10 @@
 // `switch`; that equals the plain version's masked sum because every
 // unselected candidate is finite.  `spin_cpu` adds n_spin * d_rate per step,
 // the order-free closed form of the lane sum, as the plain version does.
+// The open stages: the ring index is a floor modulo (Python's `%`), not C's
+// truncating one; at most one request departs per row and step (one CS
+// holder), so the row sums of its latency and bin are exact in any order;
+// `occ_int` adds (qlen + busy) * dt in the plain version's order.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -67,6 +81,15 @@ struct BlockArgs {
   const float* wl_burst; const float* wl_spread; const int* tb;
   const int* fault; const float* flt_rate; const float* flt_scale;
   const float* park_cost;
+  // open-loop context columns and state in / out (OPEN instantiation only)
+  const int* arrival; const float* arr_rate; const int* q_cap;
+  const float* slo;
+  const float* req_t; const float* qbuf; const int* hist; const int* qhead;
+  const int* qlen; const int* arrived; const int* shed; const int* departed;
+  const int* slo_viol; const float* lat_sum; const float* occ_int;
+  float* o_req_t; float* o_qbuf; int* o_hist; int* o_qhead; int* o_qlen;
+  int* o_arrived; int* o_shed; int* o_departed; int* o_slo_viol;
+  float* o_lat_sum; float* o_occ_int;
   int step0_s; int limit_s; int C; int T; int n_sub;
 };
 
@@ -137,6 +160,17 @@ __device__ __forceinline__ int w_sum_where(const bool (&m)[NS],
   return __reduce_add_sync(FULL_MASK, s);
 }
 
+// sum over the row of a float that is non-zero on at most one lane: exact
+__device__ __forceinline__ float w_fsum(float v) {
+  UNROLL for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+  return v;
+}
+
+// Python's `%` (floor modulo) for a positive modulus
+__device__ __forceinline__ int mod_floor(int x, int q) {
+  return ((x % q) + q) % q;
+}
+
 // -- workload rows (policy.WORKLOAD_ROWS via ref.workload_draw) --------------
 __device__ __forceinline__ float workload_draw(float u, float lo, float hi,
                                                bool is_ncs, int workload,
@@ -205,7 +239,7 @@ __device__ __forceinline__ void oracle_acquire(bool happened, int spun_w,
   ewma = ewma2;
 }
 
-template <int NS>
+template <int NS, bool OPEN>
 __global__ void __launch_bounds__(128) lock_sim_block_kernel(BlockArgs a) {
   const int c = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (c >= a.C) return;  // the whole warp leaves together
@@ -243,7 +277,7 @@ __global__ void __launch_bounds__(128) lock_sim_block_kernel(BlockArgs a) {
 
   // ---- state in registers --------------------------------------------------
   int st[NS], slept[NS], spun[NS], tk[NS], cpt[NS];
-  float rem[NS], wk[NS];
+  float rem[NS], wk[NS], req_t[NS];
   unsigned ctr[NS], tid[NS];
   bool active[NS];
   float phase_u[NS], tscale[NS];
@@ -260,6 +294,7 @@ __global__ void __launch_bounds__(128) lock_sim_block_kernel(BlockArgs a) {
     ctr[j] = valid ? a.ctr[g] : 0u;
     tk[j] = valid ? a.ticket[g] : NO_TICKET;
     cpt[j] = valid ? a.cpt[g] : 0;
+    if constexpr (OPEN) req_t[j] = valid ? a.req_t[g] : -1.0f;
     active[j] = (int)tid[j] < threads;
     // persistent per-thread workload state (ref.workload_state)
     phase_u[j] = counter_uniform(seed ^ WL_PHASE_SALT, tid[j], 0u);
@@ -276,6 +311,40 @@ __global__ void __launch_bounds__(128) lock_sim_block_kernel(BlockArgs a) {
 
   const float teps = dt * 1e-3f;
   const float wake_base = wake * park_cost;
+
+  // ---- open-loop ring and histogram in shared memory, counters in registers
+  extern __shared__ float smem[];
+  float* qb = nullptr;
+  int* hs = nullptr;
+  int arrival = AR_CLOSED, q_cap = 0;
+  float arr_rate = 0.0f, slo = 0.0f, ar_phase = 0.0f;
+  int qhead = 0, qlen = 0, arrived = 0, shed = 0, departed = 0, slo_viol = 0;
+  float lat_sum = 0.0f, occ_int = 0.0f;
+  const long long qrow = (long long)c * QUEUE_MAX;
+  const long long hrow = (long long)c * LAT_NBINS;
+  if constexpr (OPEN) {
+    qb = smem + (threadIdx.x >> 5) * (QUEUE_MAX + LAT_NBINS);
+    hs = reinterpret_cast<int*>(qb + QUEUE_MAX);
+    UNROLL for (int j = 0; j < QUEUE_MAX / 32; ++j)
+      qb[j * 32 + lane] = a.qbuf[qrow + j * 32 + lane];
+    UNROLL for (int j = 0; j < LAT_NBINS / 32; ++j)
+      hs[j * 32 + lane] = a.hist[hrow + j * 32 + lane];
+    __syncwarp();
+    arrival = a.arrival[c];
+    arr_rate = a.arr_rate[c];
+    q_cap = a.q_cap[c];
+    slo = a.slo[c];
+    ar_phase = counter_uniform(seed ^ AR_PHASE_SALT, 0u, 0u);
+    qhead = a.qhead[c];
+    qlen = a.qlen[c];
+    arrived = a.arrived[c];
+    shed = a.shed[c];
+    departed = a.departed[c];
+    slo_viol = a.slo_viol[c];
+    lat_sum = a.lat_sum[c];
+    occ_int = a.occ_int[c];
+  }
+  const bool openc = arrival != AR_CLOSED;
 
   for (int s = 0; s < a.n_sub; ++s) {
     const int i = step0 + s;
@@ -349,6 +418,42 @@ __global__ void __launch_bounds__(128) lock_sim_block_kernel(BlockArgs a) {
 
 #define BUDGET_EFF() \
   (spin_budget * (bscale_f ? (float)sws * park_cost : 1.0f))
+
+    // ---- open-loop admission (first: a request admitted at step i is in the
+    // system for steps i..j-1 when it departs at step j) --------------------
+    if constexpr (OPEN) {
+      const float gate_on =
+          1.0f - (fmodf(now2 / wl_period + ar_phase, 1.0f) >= wl_duty ? 1.0f
+                                                                       : 0.0f);
+      float rate;
+      switch (arrival) {
+        case AR_POISSON:
+          rate = arr_rate * 1.0f;
+          break;
+        case AR_BURSTY:
+          rate = arr_rate * (1.0f + gate_on * (wl_burst - 1.0f));
+          break;
+        default:  // AR_CLOSED
+          rate = arr_rate * 0.0f;
+      }
+      // Bernoulli-rounded count: floor(rate*dt) plus a trial on the rest
+      const float m = rate * dt;
+      const float mf = floorf(m);
+      const float u_arr = counter_uniform(seed ^ AR_SALT, 0u, stepu);
+      const int n_arr = (int)(mf + (u_arr < m - mf ? 1.0f : 0.0f));
+      const int n_adm = min(n_arr, q_cap - qlen);  // bounded queue: shed
+      if (n_adm > 0) {
+        const int tail = qhead + qlen;
+        UNROLL for (int j = 0; j < QUEUE_MAX / 32; ++j) {
+          const int qi = j * 32 + (int)lane;
+          if (mod_floor(qi - tail, QUEUE_MAX) < n_adm) qb[qi] = now2;
+        }
+        __syncwarp();
+      }
+      qlen += n_adm;
+      arrived += n_arr;
+      shed += n_arr - n_adm;
+    }
 
 // CS / NCS duration draw on the lanes of a mask; bumps their counters
 #define DRAW_INTO(mask, lo, hi, is_ncs, new_st)                             \
@@ -454,6 +559,36 @@ __global__ void __launch_bounds__(128) lock_sim_block_kernel(BlockArgs a) {
         const int r_wuc = (do_latch && wuc >= 0) ? wuc : -1;
         if (do_latch) wuc = wuc >= 0 ? 0 : wuc + 1;
         DRAW_INTO(done, ncs_lo, ncs_hi, true, ST_NCS)
+        // open-loop departure: the request leaves, its latency lands in the
+        // histogram and the counters, and its slot frees (DONE)
+        if constexpr (OPEN) {
+          if (openc) {
+            float lsum = 0.0f;
+            int bsum = 0;
+            bool viol[NS];
+            UNROLL for (int j = 0; j < NS; ++j) {
+              viol[j] = false;
+              if (done[j]) {
+                const float latv = now2 - req_t[j];
+                float b = floorf(log2f(fmaxf(latv, 1e-30f) / LAT_BIN0) *
+                                 (float)LAT_BINS_PER_OCTAVE);
+                b = fminf(fmaxf(b, 0.0f), (float)(LAT_NBINS - 1));
+                bsum += (int)b;
+                lsum += latv;
+                viol[j] = latv > slo;
+                st[j] = ST_DONE;
+                rem[j] = inf;
+                req_t[j] = -1.0f;
+              }
+            }
+            const int dep_bin = __reduce_add_sync(FULL_MASK, bsum);
+            const float lat = w_fsum(lsum);
+            if (lane == 0 && dep_bin < LAT_NBINS) hs[dep_bin] += 1;
+            lat_sum = lat_sum + lat;
+            departed += 1;
+            slo_viol += w_count<NS>(viol);
+          }
+        }
         // handoff: ticket order on FIFO rows, else thread id or a seeded
         // random key; equal keys fall back to the lowest id
         bool spinners[NS];
@@ -615,6 +750,39 @@ __global__ void __launch_bounds__(128) lock_sim_block_kernel(BlockArgs a) {
           (fifo_f && (st[j] == ST_SLEEP || st[j] == ST_WAKING));
       if (!queued) tk[j] = NO_TICKET;
     }
+
+    // ---- open-loop binding: queued requests claim free slots in queue
+    // order; then the occupancy integral accumulates, last ---------------
+    if constexpr (OPEN) {
+      if (openc) {
+        bool freem[NS];
+        UNROLL for (int j = 0; j < NS; ++j)
+          freem[j] = active[j] && st[j] == ST_DONE;
+        w_rank<NS>(freem, rk, lt);
+        const int n_bind = min(qlen, w_count<NS>(freem));
+        if (n_bind > 0) {
+          bool bindm[NS];
+          float rt[NS];
+          UNROLL for (int j = 0; j < NS; ++j) {
+            bindm[j] = freem[j] && rk[j] < n_bind;
+            rt[j] = bindm[j] ? qb[mod_floor(qhead + rk[j], QUEUE_MAX)] : 0.0f;
+          }
+          __syncwarp();  // reads land before the next admission writes
+          DRAW_INTO(bindm, ncs_lo, ncs_hi, true, ST_NCS)
+          UNROLL for (int j = 0; j < NS; ++j) if (bindm[j]) {
+            req_t[j] = rt[j];
+            slept[j] = 0;
+            spun[j] = 0;
+          }
+          qhead = mod_floor(qhead + n_bind, QUEUE_MAX);
+          qlen -= n_bind;
+        }
+      }
+      bool busy[NS];
+      UNROLL for (int j = 0; j < NS; ++j)
+        busy[j] = active[j] && req_t[j] >= 0.0f;
+      occ_int = occ_int + (float)(qlen + w_count<NS>(busy)) * dt;
+    }
   }
 
   // ---- one store ---------------------------------------------------------------
@@ -629,6 +797,24 @@ __global__ void __launch_bounds__(128) lock_sim_block_kernel(BlockArgs a) {
       a.o_ctr[g] = ctr[j];
       a.o_ticket[g] = tk[j];
       a.o_cpt[g] = cpt[j];
+      if constexpr (OPEN) a.o_req_t[g] = req_t[j];
+    }
+  }
+  if constexpr (OPEN) {
+    __syncwarp();
+    UNROLL for (int j = 0; j < QUEUE_MAX / 32; ++j)
+      a.o_qbuf[qrow + j * 32 + lane] = qb[j * 32 + lane];
+    UNROLL for (int j = 0; j < LAT_NBINS / 32; ++j)
+      a.o_hist[hrow + j * 32 + lane] = hs[j * 32 + lane];
+    if (lane == 0) {
+      a.o_qhead[c] = qhead;
+      a.o_qlen[c] = qlen;
+      a.o_arrived[c] = arrived;
+      a.o_shed[c] = shed;
+      a.o_departed[c] = departed;
+      a.o_slo_viol[c] = slo_viol;
+      a.o_lat_sum[c] = lat_sum;
+      a.o_occ_int[c] = occ_int;
     }
   }
   if (lane == 0) {
@@ -646,17 +832,31 @@ __global__ void __launch_bounds__(128) lock_sim_block_kernel(BlockArgs a) {
 
 }  // namespace
 
+template <bool OPEN>
+void launch_variant(const BlockArgs& a, cudaStream_t s) {
+  const int warps_per_block = 4;
+  const dim3 block(32 * warps_per_block);
+  const dim3 grid((a.C + warps_per_block - 1) / warps_per_block);
+  const size_t shmem =
+      OPEN ? warps_per_block * (QUEUE_MAX + LAT_NBINS) * sizeof(float) : 0;
+  if (a.T <= 32) lock_sim_block_kernel<1, OPEN><<<grid, block, shmem, s>>>(a);
+  else if (a.T <= 64) lock_sim_block_kernel<2, OPEN><<<grid, block, shmem, s>>>(a);
+  else lock_sim_block_kernel<4, OPEN><<<grid, block, shmem, s>>>(a);
+}
+
 // Plain C entry point (loaded with ctypes).  `state_in` / `state_out` hold
-// the 17 state pointers in canonical order, `ctx` the 28 context pointers in
-// BlockArgs order (ctx[0] / ctx[1], step0 / limit, may be null: the scalars
-// are used).  Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (or cudaErrorInvalidValue for an unsupported T).
+// the 17 state pointers in canonical order, followed by the 11 OPEN_STATE
+// pointers when `open_run` is non-zero; `ctx` holds the 32 context pointers
+// in BlockArgs order (ctx[0] / ctx[1], step0 / limit, may be null: the
+// scalars are used).  Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError() (or cudaErrorInvalidValue for an unsupported
+// T).
 extern "C" int lock_sim_block_launch(void* const* state_in,
                                      void* const* state_out, void* const* ctx,
                                      int step0_s, int limit_s, int C, int T,
-                                     int n_sub, void* stream) {
+                                     int n_sub, int open_run, void* stream) {
   if (C <= 0 || T <= 0 || T > MAX_T) return (int)cudaErrorInvalidValue;
-  BlockArgs a;
+  BlockArgs a{};
   a.st = (const int*)state_in[0];
   a.rem = (const float*)state_in[1];
   a.wake_at = (const float*)state_in[2];
@@ -719,18 +919,42 @@ extern "C" int lock_sim_block_launch(void* const* state_in,
   a.flt_rate = (const float*)ctx[25];
   a.flt_scale = (const float*)ctx[26];
   a.park_cost = (const float*)ctx[27];
+  a.arrival = (const int*)ctx[28];
+  a.arr_rate = (const float*)ctx[29];
+  a.q_cap = (const int*)ctx[30];
+  a.slo = (const float*)ctx[31];
+  if (open_run) {
+    a.req_t = (const float*)state_in[17];
+    a.qbuf = (const float*)state_in[18];
+    a.hist = (const int*)state_in[19];
+    a.qhead = (const int*)state_in[20];
+    a.qlen = (const int*)state_in[21];
+    a.arrived = (const int*)state_in[22];
+    a.shed = (const int*)state_in[23];
+    a.departed = (const int*)state_in[24];
+    a.slo_viol = (const int*)state_in[25];
+    a.lat_sum = (const float*)state_in[26];
+    a.occ_int = (const float*)state_in[27];
+    a.o_req_t = (float*)state_out[17];
+    a.o_qbuf = (float*)state_out[18];
+    a.o_hist = (int*)state_out[19];
+    a.o_qhead = (int*)state_out[20];
+    a.o_qlen = (int*)state_out[21];
+    a.o_arrived = (int*)state_out[22];
+    a.o_shed = (int*)state_out[23];
+    a.o_departed = (int*)state_out[24];
+    a.o_slo_viol = (int*)state_out[25];
+    a.o_lat_sum = (float*)state_out[26];
+    a.o_occ_int = (float*)state_out[27];
+  }
   a.step0_s = step0_s;
   a.limit_s = limit_s;
   a.C = C;
   a.T = T;
   a.n_sub = n_sub;
 
-  const int warps_per_block = 4;
-  const dim3 block(32 * warps_per_block);
-  const dim3 grid((C + warps_per_block - 1) / warps_per_block);
   cudaStream_t s = (cudaStream_t)stream;
-  if (T <= 32) lock_sim_block_kernel<1><<<grid, block, 0, s>>>(a);
-  else if (T <= 64) lock_sim_block_kernel<2><<<grid, block, 0, s>>>(a);
-  else lock_sim_block_kernel<4><<<grid, block, 0, s>>>(a);
+  if (open_run) launch_variant<true>(a, s);
+  else launch_variant<false>(a, s);
   return (int)cudaGetLastError();
 }

@@ -89,8 +89,11 @@ constexpr int TB_ID = 0;
 constexpr int TB_RANDOM = 1;
 constexpr int N_TIE_BREAK = 2;
 
-// arrival row ids: only the closed row is implemented by this kernel
+// arrival row ids (policy.ARRIVAL_IDS)
 constexpr int AR_CLOSED = 0;
+constexpr int AR_POISSON = 1;
+constexpr int AR_BURSTY = 2;
+constexpr int N_ARRIVAL = 3;
 
 // seed salts of the counter-RNG streams
 constexpr unsigned BO_SALT = 0x165667B1u;
@@ -100,6 +103,8 @@ constexpr unsigned TB_SALT = 0xD6E8FEB8u;
 constexpr unsigned FLT_GATE_SALT = 0xA3C59AC3u;
 constexpr unsigned FLT_WAKE_SALT = 0xC2B2AE35u;
 constexpr unsigned FLT_MAG_SALT = 0x27220A95u;
+constexpr unsigned AR_SALT = 0x94D049BBu;
+constexpr unsigned AR_PHASE_SALT = 0xBF58476Du;
 
 // oracle / backoff fixed-point knobs
 constexpr int EWMA_ONE = 256;
@@ -112,3 +117,9 @@ constexpr int NO_TICKET = 2147483647;
 
 // widest simulated-thread axis one warp carries (4 slots per lane)
 constexpr int MAX_T = 128;
+
+// open-loop engine: request ring width and latency histogram layout
+constexpr int QUEUE_MAX = 128;
+constexpr int LAT_NBINS = 64;
+constexpr float LAT_BIN0 = 1e-7f;
+constexpr int LAT_BINS_PER_OCTAVE = 2;

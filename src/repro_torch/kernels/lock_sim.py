@@ -3,10 +3,12 @@
 :func:`lock_sim_block` is the port of the Pallas TPU kernel
 ``repro/kernels/lock_sim.py:lock_sim_block``: ``n_sub_steps`` fused
 timesteps (GPS advance, fault rewind, the whole discipline / oracle /
-workload / fault state machine) per launch, closed-loop variant.  The CUDA
-C++ source is ``csrc/lock_sim_block.cu`` (one warp per config row, state in
-registers across the sub-step loop; bound by operations, not bytes — see
-the note at the top of that file).  Its plain PyTorch version is
+workload / arrival / fault state machine) per launch, closed-loop, or
+open-loop when ``open_state`` is given.  The CUDA C++ source is
+``csrc/lock_sim_block.cu`` (one warp per config row, state in registers
+across the sub-step loop, the open variant's request ring and latency
+histogram in shared memory; bound by operations, not bytes — see the note
+at the top of that file).  Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.lock_sim_block_ref`.
 
 The wrapper takes the plain version **only** for CPU tensors.  For CUDA
@@ -53,14 +55,14 @@ KERNEL_IDS = {
     "workload": frozenset(range(4)),
     "fault": frozenset(range(5)),
     "tb": frozenset(range(2)),
-    "arrival": frozenset({P.AR_CLOSED}),
+    "arrival": frozenset(range(3)),
 }
 
 _STATE_DTYPES = (torch.int32, torch.float32, torch.float32, torch.int32,
                  torch.int32, torch.int32, torch.int32, torch.int32) \
     + (torch.int32,) * 8 + (torch.float32,)
 
-#: Context columns the closed kernel reads, in the order of the C struct
+#: Context columns both variants read, in the order of the C struct
 #: (BLOCK_CONTEXT minus the four open-loop columns), with their dtypes.
 _KERNEL_CTX = (
     ("step0", torch.int32), ("limit", torch.int32),
@@ -78,6 +80,17 @@ _KERNEL_CTX = (
     ("fault", torch.int32), ("flt_rate", torch.float32),
     ("flt_scale", torch.float32), ("park_cost", torch.float32),
 )
+#: The four open-loop context columns, after ``_KERNEL_CTX`` in the struct
+#: (passed to both variants; only the open one reads them).
+_OPEN_CTX = (("arrival", torch.int32), ("arr_rate", torch.float32),
+             ("q_cap", torch.int32), ("slo", torch.float32))
+
+#: dtypes of the 11 OPEN_STATE arrays: ``req_t`` (C, T) f32, ``qbuf``
+#: (C, QUEUE_MAX) f32, ``hist`` (C, LAT_NBINS) i32, then the (C,) columns
+#: qhead, qlen, arrived, shed, departed, slo_viol (i32), lat_sum, occ_int
+#: (f32).
+_OPEN_DTYPES = (torch.float32, torch.float32, torch.int32) \
+    + (torch.int32,) * 6 + (torch.float32,) * 2
 
 
 # --------------------------------------------------------------------------
@@ -150,7 +163,7 @@ def _library():
     fn = lib.lock_sim_block_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -158,11 +171,14 @@ def _library():
 # --------------------------------------------------------------------------
 # Argument checks
 # --------------------------------------------------------------------------
-def check_id_columns(policy, oracle, workload, fault, tb, arrival) -> None:
+def check_id_columns(policy, oracle, workload, fault, tb, arrival, *,
+                     open_loop: bool = False) -> None:
     """Raise ``ValueError`` unless every id column lies inside the set the
-    kernel implements (:data:`KERNEL_IDS`).  Reads the columns' extremes
-    back to the host — one synchronisation — so a rollout calls it once
-    and then passes ``ids_checked=True`` to :func:`lock_sim_block`."""
+    kernel implements (:data:`KERNEL_IDS`); a closed launch
+    (``open_loop=False``) takes only the closed arrival row.  Reads the
+    columns' extremes back to the host — one synchronisation — so a
+    rollout calls it once and then passes ``ids_checked=True`` to
+    :func:`lock_sim_block`."""
     names = ("policy", "oracle", "workload", "fault", "tb", "arrival")
     cols = torch.stack([c.to(torch.int32) for c in
                         (policy, oracle, workload, fault, tb, arrival)])
@@ -170,11 +186,14 @@ def check_id_columns(policy, oracle, workload, fault, tb, arrival) -> None:
     hi = cols.max(dim=1).values.tolist()
     for name, a, b in zip(names, lo, hi):
         ok = KERNEL_IDS[name]
+        if name == "arrival" and not open_loop:
+            if not a == b == P.AR_CLOSED:
+                raise ValueError(f"arrival ids span [{a}, {b}]: the closed "
+                                 f"launch takes only the closed row "
+                                 f"{P.AR_CLOSED}; open-arrival rows need "
+                                 f"open_state")
         if a >= min(ok) and b <= max(ok):
             continue
-        if name == "arrival":
-            raise NotImplementedError(
-                f"arrival ids span [{a}, {b}]: {ref.OPEN_STATE_LATER}")
         raise ValueError(f"{name} ids span [{a}, {b}]: the kernel "
                          f"implements {sorted(ok)}")
 
@@ -212,7 +231,9 @@ def lock_sim_block(st, rem, wake_at, slept, spun, ctr, ticket,
                    ids_checked: bool = False):
     """Time-blocked rollout kernel; signature and results mirror
     :func:`repro_torch.kernels.ref.lock_sim_block_ref`: the 17 updated
-    state arrays after ``n_sub_steps`` fused timesteps.
+    state arrays after ``n_sub_steps`` fused timesteps, and the 11
+    OPEN_STATE arrays after them (28 in all) when ``open_state`` is given
+    (the open variant of the kernel).
 
     ``step0`` / ``limit`` are ints or (C,) int32 tensors; ``limit=None``
     masks nothing.  ``ctr`` and ``seed`` are int32 bit patterns of the
@@ -224,13 +245,14 @@ def lock_sim_block(st, rem, wake_at, slept, spun, ctr, ticket,
     device, dtype, shape and contiguity of every operand, ``T <=``
     :data:`MAX_THREADS` (``ValueError`` beyond) and — unless the caller
     vouches with ``ids_checked=True`` after :func:`check_id_columns` —
-    that every id column lies in :data:`KERNEL_IDS`.  Each launch adds one
-    to ``lock_sim_block.launches``."""
-    if open_state is not None:
-        raise NotImplementedError(ref.OPEN_STATE_LATER)
+    that every id column lies in :data:`KERNEL_IDS` (the closed launch
+    takes only the closed arrival row).  Each launch adds one to
+    ``lock_sim_block.launches`` (closed variant) or
+    ``lock_sim_block.open_launches`` (open variant)."""
     state = (st, rem, wake_at, slept, spun, ctr, ticket, completed_pt,
              sws, cnt, ewma, wuc, permits, nticket, completed, wake_count,
              spin_cpu)
+    open_run = open_state is not None
     device = st.device
     if device.type == "cpu":
         return ref.lock_sim_block_ref(
@@ -238,7 +260,8 @@ def lock_sim_block(st, rem, wake_at, slept, spun, ctr, ticket,
             wake, cs_lo, cs_hi, ncs_lo, ncs_hi, k, sws_max, spin_budget,
             seed, oracle, workload, wl_period, wl_duty, wl_burst, wl_spread,
             arrival, arr_rate, q_cap, slo, tb, fault, flt_rate, flt_scale,
-            park_cost, n_sub_steps=n_sub_steps, limit=limit)
+            park_cost, n_sub_steps=n_sub_steps, limit=limit,
+            open_state=open_state)
     if device.type != "cuda":
         raise ValueError(f"lock_sim_block runs on cuda or cpu tensors, "
                          f"not {device}")
@@ -251,6 +274,15 @@ def lock_sim_block(st, rem, wake_at, slept, spun, ctr, ticket,
     for i, (name, t, dtype) in enumerate(zip(ref.BLOCK_STATE, state,
                                              _STATE_DTYPES)):
         _check_tensor(name, t, dtype, (C, T) if i < 8 else (C,), device)
+    if open_run:
+        if len(open_state) != len(ref.OPEN_STATE):
+            raise ValueError(f"open_state holds the {len(ref.OPEN_STATE)} "
+                             f"OPEN_STATE arrays, got {len(open_state)}")
+        shapes = ((C, T), (C, P.QUEUE_MAX), (C, P.LAT_NBINS)) + ((C,),) * 8
+        for name, t, dtype, shape in zip(ref.OPEN_STATE, open_state,
+                                         _OPEN_DTYPES, shapes):
+            _check_tensor(name, t, dtype, shape, device)
+        state = state + tuple(open_state)
     ctx = dict(step0=step0, limit=limit, alpha=alpha, cores=cores,
                has_budget=has_budget, policy=policy, threads=threads, dt=dt,
                wake=wake, cs_lo=cs_lo, cs_hi=cs_hi, ncs_lo=ncs_lo,
@@ -258,10 +290,11 @@ def lock_sim_block(st, rem, wake_at, slept, spun, ctr, ticket,
                seed=seed, oracle=oracle, workload=workload,
                wl_period=wl_period, wl_duty=wl_duty, wl_burst=wl_burst,
                wl_spread=wl_spread, tb=tb, fault=fault, flt_rate=flt_rate,
-               flt_scale=flt_scale, park_cost=park_cost)
+               flt_scale=flt_scale, park_cost=park_cost, arrival=arrival,
+               arr_rate=arr_rate, q_cap=q_cap, slo=slo)
     scalars = {"step0": 0, "limit": 2**31 - 1}
     ctx_ptrs = []
-    for name, dtype in _KERNEL_CTX:
+    for name, dtype in _KERNEL_CTX + _OPEN_CTX:
         v = ctx[name]
         if name in scalars and not isinstance(v, torch.Tensor):
             if v is not None:
@@ -271,8 +304,8 @@ def lock_sim_block(st, rem, wake_at, slept, spun, ctr, ticket,
         _check_tensor(name, v, dtype, (C,), device)
         ctx_ptrs.append(v.data_ptr())
     if not ids_checked:
-        _check_tensor("arrival", arrival, torch.int32, (C,), device)
-        check_id_columns(policy, oracle, workload, fault, tb, arrival)
+        check_id_columns(policy, oracle, workload, fault, tb, arrival,
+                         open_loop=open_run)
 
     out = tuple(torch.empty_like(t) for t in state)
     fn = _library().lock_sim_block_launch
@@ -280,14 +313,18 @@ def lock_sim_block(st, rem, wake_at, slept, spun, ctr, ticket,
         err = fn(_ptr_array([t.data_ptr() for t in state]),
                  _ptr_array([t.data_ptr() for t in out]),
                  _ptr_array(ctx_ptrs), scalars["step0"], scalars["limit"],
-                 C, T, int(n_sub_steps),
+                 C, T, int(n_sub_steps), int(open_run),
                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lock_sim_block launch failed: CUDA error {err}")
-    lock_sim_block.launches += 1
+    if open_run:
+        lock_sim_block.open_launches += 1
+    else:
+        lock_sim_block.launches += 1
     return out
 
 
-#: Kernel launches made so far (CUDA path only; the plain version on CPU
-#: tensors does not count).
+#: Kernel launches made so far, per variant (CUDA path only; the plain
+#: version on CPU tensors does not count).
 lock_sim_block.launches = 0
+lock_sim_block.open_launches = 0

@@ -59,10 +59,16 @@ BLOCK_CONTEXT = ("step0", "limit", "alpha", "cores", "has_budget",
 BLOCK_STATE = TRANSITION_THREAD_STATE + TRANSITION_CONFIG_STATE \
     + ("spin_cpu",)
 
-OPEN_STATE_LATER = ("open-loop state (open_state, the OPEN_STATE arrays) is "
-                    "not ported yet: it lands with the open-loop slice of "
-                    "the port (open variant of lock_sim_block + "
-                    "core/stream.py)")
+#: Open-loop state appended after the closed carry (spin_cpu), present
+#: only when a batch runs the open-loop engine: ``req_t`` (C, T) f32
+#: arrival time of the request bound to each thread slot (-1 when free),
+#: ``qbuf`` (C, QUEUE_MAX) f32 ring buffer of queued arrival times,
+#: ``hist`` (C, LAT_NBINS) i32 latency histogram, then (C,) counters:
+#: queue head / length, arrived / shed / departed / SLO-violation counts
+#: (i32), latency sum and queue+service occupancy time-integral (f32) —
+#: the exact Little's-law pair.
+OPEN_STATE = ("req_t", "qbuf", "hist", "qhead", "qlen", "arrived", "shed",
+              "departed", "slo_viol", "lat_sum", "occ_int")
 
 _M32 = 0xFFFFFFFF
 
@@ -233,25 +239,22 @@ def lock_transitions_ref(st, rem, wake_at, slept, spun, ctr, ticket,
                          wl_burst, wl_spread, arrival, arr_rate, q_cap,
                          slo, tb, fault, flt_rate, flt_scale, park_cost, *,
                          open_state=None):
-    """One transition step for a (C, T) block of configurations (closed
-    loop).
+    """One transition step for a (C, T) block of configurations.
 
-    Stages, in the order the event-driven DES resolves a timestep: budget
-    exhaustion -> wake completions -> CS release/handoff -> backoff polls
-    -> arrivals -> ticket retire.  Per-thread state is (C, T) int32 / f32
-    (``slept``/``spun`` 0/1, ``ticket`` :data:`NO_TICKET` when not queued,
-    ``ctr`` an int32 bit pattern); per-config state and context are (C,)
-    vectors; ``stepi`` is the global step index (int or (C,) int32), the
-    counter of the per-step RNG streams.  Returns the 16 updated state
-    arrays in canonical order (:data:`TRANSITION_THREAD_STATE` +
-    :data:`TRANSITION_CONFIG_STATE`).
-
-    ``arrival``, ``arr_rate``, ``q_cap`` and ``slo`` are accepted for
-    signature parity and unread by the closed variant; ``open_state`` is
-    accepted and raises :class:`NotImplementedError`."""
-    if open_state is not None:
-        raise NotImplementedError(OPEN_STATE_LATER)
-
+    Stages, in the order the event-driven DES resolves a timestep:
+    [open-loop admission] -> budget exhaustion -> wake completions -> CS
+    release/handoff [+ open-loop departure] -> backoff polls -> arrivals
+    -> ticket retire [-> open-loop binding + occupancy].  Per-thread state
+    is (C, T) int32 / f32 (``slept``/``spun`` 0/1, ``ticket``
+    :data:`NO_TICKET` when not queued, ``ctr`` an int32 bit pattern);
+    per-config state and context are (C,) vectors; ``stepi`` is the
+    global step index (int or (C,) int32), the counter of the per-step
+    RNG streams.  Returns the 16 updated state arrays in canonical order
+    (:data:`TRANSITION_THREAD_STATE` + :data:`TRANSITION_CONFIG_STATE`),
+    plus the 11 :data:`OPEN_STATE` arrays when ``open_state`` is given.
+    ``arrival``, ``arr_rate``, ``q_cap`` and ``slo`` are read by the open
+    stages only; a closed config inside an open batch takes every open
+    stage as an exact masked no-op."""
     C, T = st.shape
     dev = st.device
     f32, i32 = torch.float32, torch.int32
@@ -350,6 +353,38 @@ def lock_transitions_ref(st, rem, wake_at, slept, spun, ctr, ticket,
 
     now_teps = col(now2 + teps)
 
+    # -- open-loop admission: first, so a request admitted at step i is in
+    # the system for steps i..j-1 when it departs at step j, and the
+    # occupancy integral accumulated at the end of the step equals the
+    # recorded latency (j - i) * dt exactly (Little's law).
+    open_run = open_state is not None
+    if open_run:
+        if len(open_state) != len(OPEN_STATE):
+            raise ValueError(f"open_state holds the {len(OPEN_STATE)} "
+                             f"OPEN_STATE arrays, got {len(open_state)}")
+        (req_t, qbuf, hist, qhead, qlen, arrived, shed, departed,
+         slo_viol, lat_sum, occ_int) = open_state
+        Q = qbuf.shape[1]
+        NB = hist.shape[1]
+        openc = col(arrival != P.AR_CLOSED)
+        ar_phase = counter_uniform(xor_salt(seed, P.AR_PHASE_SALT), 0, 0)
+        gate_on = 1.0 - P.workload_off_gate(now2, ar_phase, wl_period,
+                                            wl_duty)
+        rate = P.arrival_rate_at(arrival, arr_rate, gate_on, wl_burst)
+        # Bernoulli-rounded count: floor(rate*dt) plus a trial on the
+        # fractional part (closed rows: rate 0, count 0)
+        m = rate * dt
+        mf = torch.floor(m)
+        u_arr = counter_uniform(xor_salt(seed, P.AR_SALT), 0, stepu)
+        n_arr = (mf + (u_arr < (m - mf)).to(f32)).to(i32)
+        n_adm = torch.minimum(n_arr, q_cap - qlen)   # bounded queue: shed
+        qi = torch.arange(Q, dtype=i32, device=dev)[None, :]
+        wr = ((qi - col(qhead + qlen)) % Q) < col(n_adm)
+        qbuf = torch.where(wr, col(now2), qbuf)
+        qlen = qlen + n_adm
+        arrived = arrived + n_arr
+        shed = shed + (n_arr - n_adm)
+
     # -- spin-budget exhaustion -> sleep (DES stage order) -----------------
     exhausted = (st == P.SPIN) & (col(budget_f) > 0) & (rem <= REM_EPS)
     st, wake_at, permits, wake_count, slept, rem = park(
@@ -395,6 +430,29 @@ def lock_transitions_ref(st, rem, wake_at, slept, spun, ctr, ticket,
     ncs_val, ctr = draw_into(holder_done, ncs_lo, ncs_hi, ctr, is_ncs=1)
     rem = torch.where(holder_done, ncs_val, rem)
     st = torch.where(holder_done, P.NCS, st)               # R9-R10
+    # -- open-loop departure: an open config's completed request leaves
+    # instead of drawing a fresh NCS; its latency lands in the histogram
+    # and the SLO / latency counters, and the slot frees (DONE).  One CS
+    # holder per config, so at most one departure per row and step.
+    if open_run:
+        depart = holder_done & openc
+        latv = col(now2) - req_t
+        binv = torch.clamp(torch.floor(
+            torch.log2(torch.clamp(latv, min=1e-30)
+                       / torch.tensor(P.LAT_BIN0, dtype=f32, device=dev))
+            * float(P.LAT_BINS_PER_OCTAVE)), 0, NB - 1).to(i32)
+        has_dep = depart.any(-1)
+        dep_bin = torch.where(depart, binv, i0).sum(-1).to(i32)
+        nbi = torch.arange(NB, dtype=i32, device=dev)[None, :]
+        hist = hist + ((nbi == dep_bin[:, None])
+                       & has_dep[:, None]).to(i32)
+        lat_sum = lat_sum + torch.where(depart, latv,
+                                        latv.new_zeros(())).sum(-1)
+        departed = departed + has_dep.to(i32)
+        slo_viol = slo_viol + count(depart & (latv > col(slo)))
+        st = torch.where(depart, P.DONE, st)
+        rem = torch.where(depart, inf, rem)
+        req_t = torch.where(depart, -one_f, req_t)
     # handoff: grant priority is the arrival ticket for FIFO rows, the
     # thread id otherwise — or, with tie_break="random", a fresh seeded
     # per-(thread, step) key (equal random keys fall back to the id)
@@ -496,8 +554,37 @@ def lock_transitions_ref(st, rem, wake_at, slept, spun, ctr, ticket,
                                & ((st == P.SLEEP_ST) | (st == P.WAKING)))
     ticket = torch.where(queued, ticket, no_ticket)
 
+    if not open_run:
+        return (st, rem, wake_at, slept, spun, ctr, ticket, completed_pt,
+                sws, cnt, ewma, wuc, permits, nticket, completed,
+                wake_count)
+
+    # -- open-loop binding: queued requests claim free thread slots (DONE
+    # under an open config) in queue order, entering NCS with a workload
+    # draw and carrying their arrival time; then the occupancy integral
+    # accumulates LAST, so every in-system request is counted for exactly
+    # the steps between its admission and its departure.
+    freem = active & (st == P.DONE) & openc
+    rank_f = rank_of(freem)
+    n_bind = torch.minimum(qlen, count(freem))
+    bindm = freem & (rank_f < col(n_bind))
+    qpos = (col(qhead) + rank_f) % Q
+    rt = torch.gather(qbuf, 1, qpos.to(torch.int64))
+    ncs_b, ctr = draw_into(bindm, ncs_lo, ncs_hi, ctr, is_ncs=1)
+    st = torch.where(bindm, P.NCS, st)
+    rem = torch.where(bindm, ncs_b, rem)
+    req_t = torch.where(bindm, rt, req_t)
+    slept = torch.where(bindm, i0, slept)
+    spun = torch.where(bindm, i0, spun)
+    qhead = (qhead + n_bind) % Q
+    qlen = qlen - n_bind
+    busy = count(active & (req_t >= 0.0))
+    occ_int = occ_int + (qlen + busy).to(f32) * dt
+
     return (st, rem, wake_at, slept, spun, ctr, ticket, completed_pt,
-            sws, cnt, ewma, wuc, permits, nticket, completed, wake_count)
+            sws, cnt, ewma, wuc, permits, nticket, completed, wake_count,
+            req_t, qbuf, hist, qhead, qlen, arrived, shed, departed,
+            slo_viol, lat_sum, occ_int)
 
 
 def lock_sim_block_ref(st, rem, wake_at, slept, spun, ctr, ticket,
@@ -524,12 +611,18 @@ def lock_sim_block_ref(st, rem, wake_at, slept, spun, ctr, ticket,
     ``limit`` (int or (C,) int32) caps the global step index: sub-steps
     with ``step0 + s >= limit`` select the pre-step state unchanged, so a
     partial tail block equals running exactly that many steps.  Returns the
-    17 updated state arrays; inputs are not modified."""
-    if open_state is not None:
-        raise NotImplementedError(OPEN_STATE_LATER)
+    17 updated state arrays — plus the 11 :data:`OPEN_STATE` arrays,
+    carried through the loop and masked by ``limit`` like the closed
+    state (the 2-d ``(C, Q)`` / ``(C, NB)`` ones included), when
+    ``open_state`` is given.  Inputs are not modified."""
+    n_open = 0 if open_state is None else len(open_state)
+    if open_state is not None and n_open != len(OPEN_STATE):
+        raise ValueError(f"open_state holds the {len(OPEN_STATE)} "
+                         f"OPEN_STATE arrays, got {n_open}")
     dev = st.device
     state = (st, rem, wake_at, slept, spun, ctr, ticket, completed_pt,
-             sws, cnt, ewma, wuc, permits, nticket, completed, wake_count)
+             sws, cnt, ewma, wuc, permits, nticket, completed, wake_count,
+             *(open_state or ()))
     cpu = spin_cpu
     as_i32 = lambda v: (v if isinstance(v, torch.Tensor)
                         else torch.tensor(int(v), dtype=torch.int32,
@@ -546,14 +639,15 @@ def lock_sim_block_ref(st, rem, wake_at, slept, spun, ctr, ticket,
                                         has_budget)
         rem_s = fault_rewind(st_s, rem_s, alpha, cores, dt, i_f * dt, seed,
                              fault, flt_rate, flt_scale)
-        new = lock_transitions_ref(st_s, rem_s, *state[2:], now2, i,
+        new = lock_transitions_ref(st_s, rem_s, *state[2:16], now2, i,
                                    policy, threads, dt, wake, cs_lo,
                                    cs_hi, ncs_lo, ncs_hi, k, sws_max,
                                    spin_budget, seed, oracle, workload,
                                    wl_period, wl_duty, wl_burst,
                                    wl_spread, arrival, arr_rate, q_cap,
                                    slo, tb, fault, flt_rate, flt_scale,
-                                   park_cost)
+                                   park_cost,
+                                   open_state=state[16:] if n_open else None)
         if limit is None:
             state, cpu = new, cpu + burn
             continue
@@ -562,7 +656,7 @@ def lock_sim_block_ref(st, rem, wake_at, slept, spun, ctr, ticket,
         state = tuple(torch.where(actT if n.ndim == 2 else act, n, o)
                       for n, o in zip(new, state))
         cpu = cpu + torch.where(act, burn, burn.new_zeros(()))
-    return (*state, cpu)
+    return (*state[:16], cpu, *state[16:])
 
 
 def oracle_update_ref(oracle_id, spun, slept, sws, cnt, ewma, k, sws_max):

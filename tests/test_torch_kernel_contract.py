@@ -70,7 +70,10 @@ def test_header_parses():
     ("FLT_MAG_SALT", P.FLT_MAG_SALT), ("EWMA_ONE", P.EWMA_ONE),
     ("EWMA_SHIFT", P.EWMA_SHIFT), ("BO_CAP", P.BO_CAP),
     ("NO_TICKET", ref.NO_TICKET), ("AR_CLOSED", P.AR_CLOSED),
-    ("MAX_T", K.MAX_THREADS),
+    ("MAX_T", K.MAX_THREADS), ("AR_SALT", P.AR_SALT),
+    ("AR_PHASE_SALT", P.AR_PHASE_SALT), ("QUEUE_MAX", P.QUEUE_MAX),
+    ("LAT_NBINS", P.LAT_NBINS),
+    ("LAT_BINS_PER_OCTAVE", P.LAT_BINS_PER_OCTAVE),
 ])
 def test_scalar_constants_equal(name, value):
     assert CONSTS[name] == value
@@ -78,6 +81,7 @@ def test_scalar_constants_equal(name, value):
 
 def test_rem_eps_equal_in_float32():
     assert np.float32(CONSTS["REM_EPS"]) == np.float32(ref.REM_EPS)
+    assert np.float32(CONSTS["LAT_BIN0"]) == np.float32(P.LAT_BIN0)
 
 
 @pytest.mark.parametrize("prefix,table", [
@@ -86,11 +90,13 @@ def test_rem_eps_equal_in_float32():
     ("WL_", {n.upper(): i for n, i in P.WORKLOAD_IDS.items()}),
     ("FAULT_", {n.upper(): i for n, i in P.FAULT_IDS.items()}),
     ("TB_", {n.upper(): i for n, i in P.TIE_BREAK_IDS.items()}),
+    ("AR_", {n.upper(): i for n, i in P.ARRIVAL_IDS.items()}),
 ])
 def test_id_tables_equal(prefix, table):
     """Every registry id has a constant of the same value, and the header
     holds no id the registry lacks."""
-    salts = {"WL_PHASE_SALT", "WL_SPREAD_SALT", "TB_SALT"}
+    salts = {"WL_PHASE_SALT", "WL_SPREAD_SALT", "TB_SALT", "AR_SALT",
+             "AR_PHASE_SALT"}
     mine = {k[len(prefix):]: v for k, v in CONSTS.items()
             if k.startswith(prefix) and k not in salts}
     assert mine == table
@@ -100,6 +106,7 @@ def test_id_tables_equal(prefix, table):
     ("policy", "N_POLICY", P.POLICY_IDS), ("oracle", "N_ORACLE", P.ORACLE_IDS),
     ("workload", "N_WORKLOAD", P.WORKLOAD_IDS),
     ("fault", "N_FAULT", P.FAULT_IDS), ("tb", "N_TIE_BREAK", P.TIE_BREAK_IDS),
+    ("arrival", "N_ARRIVAL", P.ARRIVAL_IDS),
 ])
 def test_wrapper_admits_exactly_the_registry(column, count, registry):
     assert K.KERNEL_IDS[column] == frozenset(registry.values())
@@ -107,8 +114,19 @@ def test_wrapper_admits_exactly_the_registry(column, count, registry):
 
 
 def test_wrapper_admits_only_the_closed_arrival_row():
-    assert K.KERNEL_IDS["arrival"] == frozenset({P.AR_CLOSED})
-    assert set(P.ARRIVAL_IDS.values()) - K.KERNEL_IDS["arrival"]   # later
+    """The closed launch admits only the closed arrival row; the open one
+    (``open_state`` given) admits every ARRIVAL_ROWS id."""
+    assert K.KERNEL_IDS["arrival"] == frozenset(
+        r.aid for r in P.ARRIVAL_ROWS.values())
+    col = lambda *v: torch.tensor(v, dtype=torch.int32)
+    ids = dict(policy=col(0, 0), oracle=col(0, 0), workload=col(0, 0),
+               fault=col(0, 0), tb=col(0, 0))
+    for aid in sorted(P.ARRIVAL_IDS.values()):
+        K.check_id_columns(**ids, arrival=col(P.AR_CLOSED, aid),
+                           open_loop=True)
+        if aid != P.AR_CLOSED:
+            with pytest.raises(ValueError, match="closed launch"):
+                K.check_id_columns(**ids, arrival=col(P.AR_CLOSED, aid))
 
 
 @pytest.mark.parametrize("lock", sorted(P.POLICY_IDS))
@@ -130,8 +148,12 @@ def test_discipline_row_word(lock):
 
 def test_kernel_context_is_block_context_minus_open_columns():
     names = tuple(n for n, _ in K._KERNEL_CTX)
+    open_cols = ("arrival", "arr_rate", "q_cap", "slo")
     assert names == tuple(n for n in ref.BLOCK_CONTEXT
-                          if n not in ("arrival", "arr_rate", "q_cap", "slo"))
+                          if n not in open_cols)
+    # the open variant's four columns follow them in the C struct
+    assert tuple(n for n, _ in K._OPEN_CTX) == open_cols
+    assert sorted(names + open_cols) == sorted(ref.BLOCK_CONTEXT)
     assert ref.BLOCK_CONTEXT[5:] == ref.TRANSITION_CONTEXT[2:]
     assert xdes._PRM_FIELDS == ref.TRANSITION_CONTEXT[2:]
     assert K.NVCC_FLAGS.count("-fmad=false") == 1
@@ -148,8 +170,11 @@ def test_check_id_columns():
                       ("fault", 5), ("tb", 2)):
         with pytest.raises(ValueError, match=name):
             K.check_id_columns(**{**ok, name: col(0, bad)})
-    with pytest.raises(NotImplementedError, match="open-loop"):
+    with pytest.raises(ValueError, match="closed launch"):
         K.check_id_columns(**{**ok, "arrival": col(0, 1)})
+    K.check_id_columns(**{**ok, "arrival": col(0, 2)}, open_loop=True)
+    with pytest.raises(ValueError, match="arrival"):
+        K.check_id_columns(**{**ok, "arrival": col(0, 3)}, open_loop=True)
 
 
 def test_import_pulls_in_neither_jax_nor_repro():
@@ -157,6 +182,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.core.policy; import repro_torch.kernels.ref; "
             "import repro_torch.kernels.lock_sim; "
             "import repro_torch.configs.catalog; "
+            "import repro_torch.core.stream; "
+            "import repro_torch.core.mutlock; "
+            "import repro_torch.checkpoint.manager; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
             "m.startswith('repro.') or m == 'triton']; "
@@ -172,7 +200,7 @@ def test_no_import_of_jax_or_repro_in_the_sources():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     files = list((ROOT / "src" / "repro_torch").rglob("*.py")) \
         + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 9
+    assert len(files) >= 16
     assert not [f for f in files if pat.search(f.read_text())]
 
 
@@ -200,7 +228,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     args = (cols["alpha"], cols["cores"],
             P.discipline_flags(cols["policy"])[2] > 0,
             *(cols[f] for f in xdes._PRM_FIELDS))
-    with pytest.raises(NotImplementedError, match="open-loop"):
+    with pytest.raises(ValueError, match="11 OPEN_STATE"):
         K.lock_sim_block(*state, 0, *args, n_sub_steps=4, open_state=())
     meta = lambda t: t.to("meta")
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -108,6 +108,30 @@ def test_row_functions_scalar_equal():
             JP.counter_uniform_scalar(seed, tid % 128, ctr)
 
 
+def test_algorithm1_scalar_helpers_equal():
+    """The scalar Algorithm-1 helpers the threaded lock and oracles use."""
+    for spun in (False, True):
+        for slept in (False, True):
+            for sws in (1, 2, 5):
+                for cnt in (0, 2, 9):
+                    for k in (1, 3, 10):
+                        assert TP.eval_sws_delta(spun, slept, sws, cnt, k) \
+                            == JP.eval_sws_delta(spun, slept, sws, cnt, k)
+    for sws in range(1, 6):
+        for delta in range(-6, 7):
+            assert TP.clamp_delta(sws, delta, 1, 4) == \
+                JP.clamp_delta(sws, delta, 1, 4)
+            for thc in range(0, 8):
+                assert TP.wake_correction(delta, thc, sws) == \
+                    JP.wake_correction(delta, thc, sws)
+                assert TP.should_sleep_on_arrival(thc, sws) == \
+                    JP.should_sleep_on_arrival(thc, sws)
+                assert TP.release_quota(delta, thc, sws) == \
+                    JP.release_quota(delta, thc, sws)
+    for wuc in range(-4, 5):
+        assert TP.latch_wuc(wuc) == JP.latch_wuc(wuc)
+
+
 # --------------------------------------------------------------------------
 # SimConfig -> columns, and the planner
 # --------------------------------------------------------------------------
@@ -210,6 +234,7 @@ def test_plan_schedule_equal(target_cs):
     ("lock_scenario_sweep", dict(n_scenarios=7)),
     ("lock_oracle_sweep", dict(n_scenarios=5)),
     ("lock_discipline_sweep", dict(n_scenarios=5, seed=3)),
+    ("lock_arrival_sweep", dict(n_scenarios=3, seed=2)),
 ])
 def test_catalog_specs_equal(factory, kwargs):
     import dataclasses

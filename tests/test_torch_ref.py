@@ -229,7 +229,7 @@ def test_lock_transitions_ref_matches_jax(workloads, label, stepi_kind):
 def test_lock_transitions_ref_rejects_open_state():
     state, *_, ctx = _random_block(3, 4, 4)
     now2 = ctx[2]
-    with pytest.raises(NotImplementedError, match="open-loop"):
+    with pytest.raises(ValueError, match="11 OPEN_STATE"):
         tref.lock_transitions_ref(*map(_to_torch, state[:16]),
                                   _to_torch(now2), 0, *map(_to_torch, ctx),
                                   open_state=())

@@ -161,14 +161,19 @@ def test_pad_configs_invariance():
 
 
 def test_unported_paths_raise():
+    """Open-arrival configs run now (auto-detected or forced);
+    ``shard=True`` and ``rollout="scan"`` on the kernel backend still
+    raise, naming their slice."""
     closed = SimConfig("mutable", 4, 4, SHORT, SHORT)
     opened = SimConfig("mutable", 4, 4, SHORT, SHORT, arrival="poisson",
                        arrival_rate=1e5)
-    with pytest.raises(NotImplementedError, match="open-loop slice"):
-        txdes.simulate_batch([closed, opened], n_steps=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="open-loop slice"):
-        txdes.simulate_batch([closed], n_steps=8, open_loop=True,
-                             device="cpu")
+    mixed = txdes.simulate_batch([closed, opened], n_steps=8, device="cpu")
+    assert mixed.lat_hist.shape == (2, TP.LAT_NBINS)
+    forced = txdes.simulate_batch([closed], n_steps=8, open_loop=True,
+                                  device="cpu")
+    assert forced.arrived.tolist() == [0]
+    assert txdes.simulate_batch([closed], n_steps=8,
+                                device="cpu").lat_hist is None
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         txdes.simulate_batch([closed], n_steps=8, shard=True, device="cpu")
     with pytest.raises(NotImplementedError, match="per-step kernels"):
