@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and nothing else: the kernel library (the
-closed and open variants of ``lock_sim_block``) is built from
+closed and open variants of ``lock_sim_block`` and ``lock_transitions_step``,
+``lock_sim_step`` and ``oracle_step``) is built from
 ``src/repro_torch/kernels/csrc`` by this run.  Exits non-zero, printing no
 result line, when there is no CUDA device or when any phase fails.
 
@@ -12,9 +13,10 @@ Phases (each but the first prints one JSON line):
 
 1. the card's name and power limit, the line ``nvidia-smi
    --query-gpu=name,power.limit --format=csv,noheader`` prints
-2. ``build``   nvcc build of the kernel library: seconds, and ptxas's
-   registers / spills for each instantiation (closed and open variants
-   at 1, 2 and 4 thread slots per lane)
+2. ``build``   nvcc build of the kernel library (one compiler per source,
+   all at once): seconds, and ptxas's registers / spills for each
+   instantiation (closed and open variants at 1, 2 and 4 thread slots per
+   lane)
 3. ``kernel_vs_plain``  ``lock_sim_block`` against ``lock_sim_block_ref``,
    both on the card, chained from the engine's initial state for 256 steps
    over the closed conformance matrix (every policy id x workload x fault,
@@ -28,28 +30,48 @@ Phases (each but the first prints one JSON line):
    row's capacity, small queue caps so the overloaded rows shed) and a
    T=128 batch: all 28 state fields exactly equal; departures per open row
    and the rows that shed nothing are reported and held to a floor.
-5. ``fig3``    ``simulate_batch`` on the 320-config Fig. 3 grid, auto
+5. ``step_kernels_vs_plain``  ``lock_sim_step`` and ``lock_transitions_step``
+   (closed and open) against their plain versions on the card, stepping the
+   closed and the open matrix (and a T=128 / T=64 batch of each) for 256
+   steps: at each step one shared state goes to the kernel and to the plain
+   version, with ``stepi`` as an int, a 0-d tensor and a (C,) column in
+   turn, and every output must be exactly equal; a launch with an id
+   outside the registry must be refused.
+6. ``oracle_kernel_vs_plain``  ``oracle_step`` against ``oracle_update_ref``
+   on 10**6 seeded rows (the simulator's domain plus negative ``sws``,
+   ``cnt`` and ``k + 1``, where floor division differs from C's), exactly.
+7. ``fig3``    ``simulate_batch`` on the 320-config Fig. 3 grid, auto
    horizon for target_cs=25 with early exit, ``backend="kernel"`` against
    ``backend="ref"`` on the card; equal under the same rule;
    ``validate()`` passes.
-6. ``at_size`` the 100 005-config discipline x oracle sweep (T=32,
+8. ``scan_equals_blocked``  the scan rollout, this slice's path:
+   ``simulate_batch(rollout="scan")`` on the Fig. 3 grid at the horizon
+   ``fig3`` plans, and on the open matrix as an open-loop batch, through
+   ``lock_sim_step`` + the fault rewind + ``lock_transitions_step`` once
+   per step, against the blocked rollout through ``lock_sim_block`` with
+   early exit off over the same steps: every ``BatchResult`` field exactly
+   equal; seconds of both rollouts and the launches of the scan.
+9. ``at_size`` the 100 005-config discipline x oracle sweep (T=32,
    target_cs=50, step-count buckets, no per-thread output) through the
    kernel: configs, buckets, launches, seconds, config-steps/s, peak bytes;
    then the same sweep without the early-exit flag, to price the one
    device-to-host read per launch, and once under ``torch.profiler`` for
    the device's busy seconds and idle share.
-7. ``stream_identity``  the 720-config arrival grid through the kernel
+10. ``stream_identity``  the 720-config arrival grid through the kernel
    without early exit: one-shot ``simulate_batch`` == ``sweep_stream`` in
    at least 3 chunks, and a sweep cut after its first committed chunk then
    resumed from its checkpoint == the uninterrupted one, bit for bit.
-8. ``arrival_at_size``  ``sweep_stream`` over the 100 080-config arrival
+11. ``arrival_at_size``  ``sweep_stream`` over the 100 080-config arrival
    diagram (834 scenarios x 2 arrival rows x 4 loads x 15 variants, T=32,
    target_cs=50, CellReduce over the 8 (arrival, load) cells) through the
    open kernel: seconds, config-steps/s, chunks, launches, host and device
    seconds, peak bytes, the device's busy share, the cells' winners.
-9. ``kernels`` the contract line: per variant, the time per launch at its
-   sweep's largest shape (CUDA events, median), the plain version's time at
-   the same shape, the roofline bound, and the launches its sweep made.
+12. ``kernels`` the contract line: per kernel and variant, the time per
+   launch at its largest main-path shape (CUDA events, median, with the
+   card kept busy while the host enqueues the launch), the plain
+   version's time at the same shape, the roofline bound, and the launches
+   its path made (the block kernel in the sweeps, the step pair in the
+   scan rollouts, ``oracle_step`` on no path: 0).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -111,6 +133,15 @@ OPS_PER_THREAD_STEP_OPEN = OPS_PER_THREAD_STEP + 10
 #: rate select 3, Bernoulli count with its counter hash 22, queue bound 3,
 #: counters 4), the bind count 5, the busy count and the occ_int update 7.
 OPS_PER_ROW_STEP_OPEN = 38 + 5 + 7
+#: lock_sim_step, per active thread: the GPS advance's 19 of the count
+#: above.
+OPS_PER_THREAD_ADVANCE = 19
+#: lock_transitions_step, per active thread: the idle stage's 21 of the
+#: count above (wake/gate context, the wake, release and arrival tests,
+#: ticket retire) plus the per-launch workload phase hash, 14.
+OPS_PER_THREAD_TRANSITION = 21 + 14
+#: oracle_step, per config: the late flag, the selected row and the clamp.
+OPS_PER_ROW_ORACLE = 20
 
 
 def emit(obj):
@@ -150,9 +181,11 @@ def compare_states(got, want, where, names=STATE_NAMES):
     return worst
 
 
-def compare_results(a, b, where, fields=("completed", "completed_per_thread",
-                                          "wake_count", "final_sws", "t_end",
-                                          "steps_run", "spin_cpu")):
+RESULT_FIELDS = ("completed", "completed_per_thread", "wake_count",
+                 "final_sws", "t_end", "steps_run", "spin_cpu")
+
+
+def compare_results(a, b, where, fields=RESULT_FIELDS):
     for f in fields:
         if not np.array_equal(getattr(a, f), getattr(b, f)):
             fail(f"{where}: {f} differs")
@@ -350,7 +383,212 @@ def phase_open_kernel_vs_plain():
 
 
 # --------------------------------------------------------------------------
-# phases 4-6
+# phases 5-6: the per-step kernels
+# --------------------------------------------------------------------------
+TRANSITION_NAMES = ref.TRANSITION_THREAD_STATE + ref.TRANSITION_CONFIG_STATE
+
+
+def advance_args(cols):
+    """``alpha, cores, dt, has_budget``: the GPS advance's columns."""
+    return (cols["alpha"], cols["cores"], cols["dt"],
+            P.discipline_flags(cols["policy"])[2] > 0)
+
+
+def step_inputs(cols, state, step):
+    """The scan rollout's step ``step`` from ``state``: the plain GPS
+    advance and fault rewind, and the (C,) ``now2`` and 0-d ``stepi``."""
+    i = torch.tensor(step, dtype=torch.int32, device=DEV)
+    i_f = i.to(torch.float32)
+    rem, burn = ref.lock_sim_step_ref(state[0], state[1],
+                                      *advance_args(cols))
+    rem = ref.fault_rewind(state[0], rem, cols["alpha"], cols["cores"],
+                           cols["dt"], i_f * cols["dt"], cols["seed"],
+                           cols["fault"], cols["flt_rate"], cols["flt_scale"])
+    return rem, burn, (i_f + 1.0) * cols["dt"], i
+
+
+def phase_step_kernels_vs_plain():
+    batches = {
+        "matrix": (closed_matrix(), 8, False),
+        "T128": (closed_matrix(threads_hi=129, seed=3), 128, False),
+        "open_matrix": (open_matrix(), 8, True),
+        "open_T64": (open_matrix(65, (0.9, 8.0), seed=1), 64, True),
+    }
+    total, worst = 256, 0.0
+    K.lock_sim_step.launches = 0
+    K.lock_transitions_step.launches = 0
+    K.lock_transitions_step.open_launches = 0
+    completed = {}
+    for label, (cfgs, T, open_loop) in batches.items():
+        cols = columns_for(cfgs)
+        args = block_args(cols)
+        prm = args[3:]
+        adv = advance_args(cols)
+        state = xdes._init_state(cols, T, open_loop)
+        names = TRANSITION_NAMES + (ref.OPEN_STATE if open_loop else ())
+        C = len(cfgs)
+        for step in range(total):
+            where = f"{label} step {step}"
+            st, rem = state[0], state[1]
+            want = ref.lock_sim_step_ref(st, rem, *adv)
+            got = K.lock_sim_step(st, rem, *adv)
+            worst = max(worst, compare_states(got, want, f"{where} advance",
+                                              ("rem", "burn")))
+            rem1, burn, now2, i = step_inputs(cols, state, step)
+            # stepi as an int, a 0-d tensor and a (C,) column in turn
+            stepi = (step, i, i.expand(C).contiguous())[step % 3]
+            ostate = state[17:] if open_loop else None
+            want = ref.lock_transitions_ref(st, rem1, *state[2:16], now2, i,
+                                            *prm, open_state=ostate)
+            got = K.lock_transitions_step(st, rem1, *state[2:16], now2,
+                                          stepi, *prm, open_state=ostate)
+            torch.cuda.synchronize()
+            worst = max(worst, compare_states(got, want, f"{where} "
+                                              "transitions", names))
+            state = (*want[:16], state[16] + burn, *want[16:])
+        completed[label] = int(state[14].sum())
+        if completed[label] == 0:
+            fail(f"{label}: no critical section completed — the comparison "
+                 "exercised nothing")
+        if open_loop and int(state[24].sum()) == 0:
+            fail(f"{label}: no request departed")
+    launches = (K.lock_sim_step.launches, K.lock_transitions_step.launches,
+                K.lock_transitions_step.open_launches)
+    # a policy id outside the registry is refused before any launch
+    cols = columns_for(closed_matrix())
+    state = xdes._init_state(cols, 8)
+    rem1, _, now2, i = step_inputs(cols, state, 0)
+    prm = list(block_args(cols)[3:])
+    prm[xdes._PRM_FIELDS.index("policy")] = torch.full_like(
+        cols["policy"], len(P.POLICY_IDS))
+    try:
+        K.lock_transitions_step(state[0], rem1, *state[2:16], now2, i, *prm)
+        fail("lock_transitions_step launched with a policy id outside the "
+             "registry")
+    except ValueError:
+        pass
+    if K.lock_transitions_step.launches != launches[1]:
+        fail("a refused lock_transitions_step call counted a launch")
+    emit({"phase": "step_kernels_vs_plain", "batches": list(batches),
+          "rows": [len(b[0]) for b in batches.values()], "steps": total,
+          "lock_sim_step_launches": launches[0],
+          "lock_transitions_step_launches": launches[1],
+          "lock_transitions_step_open_launches": launches[2],
+          "completed": completed, "mismatches": 0,
+          "exact_fields": {"lock_sim_step": 2,
+                           "lock_transitions_step": len(TRANSITION_NAMES),
+                           "lock_transitions_step_open":
+                               len(TRANSITION_NAMES) + len(ref.OPEN_STATE)},
+          "max_abs_err": worst})
+    return worst
+
+
+#: Rows of the oracle comparison and timing.
+ORACLE_CONFIGS = 10**6
+
+
+def oracle_inputs(n, seed=0):
+    """Seeded oracle observations: the simulator's domain (``k >= 1``,
+    ``1 <= sws <= sws_max``, ``0 <= ewma <= EWMA_ONE``, 0/1 flags) plus
+    negative ``sws``, ``cnt`` and ``k + 1`` on a sixth of the rows each,
+    where Python's floor division and C's truncating one differ."""
+    rng = np.random.default_rng(seed)
+    sws_max = rng.integers(1, 64, n)
+    sws = rng.integers(1, sws_max + 1)
+    cnt = rng.integers(0, 40, n)
+    k = rng.integers(1, 31, n)
+    odd = rng.integers(0, 6, n)
+    sws = np.where(odd == 0, rng.integers(-64, 0, n), sws)
+    cnt = np.where(odd == 1, rng.integers(-40, 0, n), cnt)
+    k = np.where(odd == 2, rng.integers(-40, -1, n), k)
+    cols = (rng.integers(0, len(P.ORACLE_IDS), n), rng.integers(0, 2, n),
+            rng.integers(0, 2, n), sws, cnt, rng.integers(0, 257, n), k,
+            sws_max)
+    return [torch.from_numpy(c.astype(np.int32)).to(DEV) for c in cols]
+
+
+def phase_oracle_kernel_vs_plain():
+    args = oracle_inputs(ORACLE_CONFIGS)
+    K.oracle_step.launches = 0
+    want = ref.oracle_update_ref(*args)
+    got = K.oracle_step(*args)
+    flags = K.oracle_step(args[0], args[1].bool(), args[2].bool(), *args[3:])
+    torch.cuda.synchronize()
+    names = ("delta", "cnt", "ewma")
+    compare_states(got, want, "oracle_step", names)
+    compare_states(flags, want, "oracle_step, bool flags", names)
+    bad = args[0].clone()
+    bad[7] = len(P.ORACLE_IDS)
+    try:
+        K.oracle_step(bad, *args[1:])
+        fail("oracle_step launched with an oracle id outside the registry")
+    except ValueError:
+        pass
+    emit({"phase": "oracle_kernel_vs_plain", "rows": ORACLE_CONFIGS,
+          "oracle_ids": sorted(P.ORACLE_IDS.values()),
+          "negative_rows": {"sws": int((args[3] < 0).sum()),
+                            "cnt": int((args[4] < 0).sum()),
+                            "k_plus_1": int((args[6] + 1 < 0).sum())},
+          "launches": K.oracle_step.launches, "mismatches": 0,
+          "exact_fields": len(names), "max_abs_err": 0.0})
+    return args
+
+
+def phase_scan_equals_blocked():
+    """The scan rollout (K2 + rewind + K3 per step) against the blocked
+    rollout (K1) on the Fig. 3 grid and on the open matrix, every field
+    exact.  The launch counts are set to 0 just before each scan and read
+    just after."""
+    out = {"phase": "scan_equals_blocked"}
+    launches = {}
+    for label, cfgs, fields in (
+            ("fig3", catalog.lock_fig3_grid(), RESULT_FIELDS),
+            ("open_matrix", open_matrix(),
+             RESULT_FIELDS + xdes.OPEN_RESULT_FIELDS)):
+        torch.cuda.synchronize()
+        K.lock_sim_step.launches = 0
+        K.lock_transitions_step.launches = 0
+        K.lock_transitions_step.open_launches = 0
+        t0 = time.perf_counter()
+        scan = xdes.simulate_batch(cfgs, target_cs=FIG3_TARGET_CS,
+                                   rollout="scan")
+        torch.cuda.synchronize()
+        t_scan = time.perf_counter() - t0
+        n = (K.lock_sim_step.launches, K.lock_transitions_step.launches,
+             K.lock_transitions_step.open_launches)
+        K.lock_sim_block.launches = K.lock_sim_block.open_launches = 0
+        t0 = time.perf_counter()
+        blocked = xdes.simulate_batch(cfgs, target_cs=FIG3_TARGET_CS,
+                                      early_exit=False)
+        torch.cuda.synchronize()
+        t_blocked = time.perf_counter() - t0
+        nb = K.lock_sim_block.launches + K.lock_sim_block.open_launches
+        compare_results(scan, blocked, f"scan_equals_blocked {label}",
+                        fields)
+        scan.validate(f"scan {label}")
+        open_loop = label == "open_matrix"
+        if n[0] != scan.n_steps or n[2 if open_loop else 1] != scan.n_steps \
+                or n[1 if open_loop else 2] != 0:
+            fail(f"scan {label}: {n} launches over {scan.n_steps} steps")
+        if (scan.steps_run != scan.n_steps).any():
+            fail(f"scan {label}: the scan rollout stopped early")
+        launches[label] = n
+        out[label] = {"configs": len(cfgs), "n_steps": scan.n_steps,
+                      "scan_seconds": t_scan, "blocked_seconds": t_blocked,
+                      "lock_sim_step_launches": n[0],
+                      "lock_transitions_step_launches": n[1],
+                      "lock_transitions_step_open_launches": n[2],
+                      "lock_sim_block_launches": nb,
+                      "completed": int(scan.completed.sum()),
+                      "fields": list(fields), "mismatches": 0}
+        if open_loop:
+            out[label]["departed"] = int(scan.departed.sum())
+    emit(out)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phases 7-12
 # --------------------------------------------------------------------------
 def phase_fig3():
     cfgs = catalog.lock_fig3_grid()
@@ -586,11 +824,22 @@ def phase_at_size(n_scenarios):
     return cfgs, steps, max(buckets, key=len), launches
 
 
-def median_ms(fn, reps):
+#: Cycles the card spins before a timed kernel launch (about 2.5 ms), long
+#: enough for the host to enqueue the launch behind it: the events then
+#: bracket the kernel's device time, not the wrapper's Python time.
+HIDE_HOST_CYCLES = 5_000_000
+
+
+def median_ms(fn, reps, hide_host=False):
+    """Median of ``reps`` timings of ``fn`` by CUDA events.  With
+    ``hide_host`` the card is kept busy while the host enqueues ``fn``'s
+    launches, so a short kernel is timed on the device alone."""
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
         a.record()
         fn()
         b.record()
@@ -599,14 +848,43 @@ def median_ms(fn, reps):
     return float(np.median(times))
 
 
-def time_launch(cols, T, n_steps, open_loop, ops_per_thread_step,
-                ops_per_row_step=0):
-    """Time one launch of the kernel (CUDA events, median of 20) and of its
-    plain version (median of 3) at ``cols``' shape, from the state halfway
-    through an ``n_steps`` run, and compute the roofline bound of that
-    launch: every input read once, every output written once; operations
-    for the sub-steps it really runs, per active thread and per row."""
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def roofline(n_bytes, ops):
+    """The least time of a launch: ``n_bytes`` over the memory rate against
+    ``ops`` over the float32 rate, the larger wins."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms}
+
+
+def time_pair(kern, plain, where, names, shape):
+    """Hold one kernel launch against its plain version, then time both
+    (CUDA events; median of 20 launches on the device alone, and, for
+    comparison, with the wrapper's host time; median of 3 plain calls)."""
+    compare_states(kern(), plain(), where, names)
+    return {"ms": median_ms(kern, 20, hide_host=True),
+            "with_host_ms": median_ms(kern, 20),
+            "plain_ms": median_ms(plain, 3), "library_ms": None,
+            "shape": shape}
+
+
+def time_launches(cols, T, n_steps, open_loop, ops_per_thread_step,
+                  ops_per_row_step=0):
+    """Time the kernels at ``cols``' shape from the state halfway through
+    an ``n_steps`` run: one block launch (32 sub-steps) and, from the same
+    state, one ``lock_sim_step`` (closed only: it has one variant) and one
+    ``lock_transitions_step`` launch, each against its plain version.  The
+    roofline bound of each: every input read once, every output written
+    once; operations for the (sub-)steps it really runs, per active thread
+    and per row."""
     args = block_args(cols)
+    prm = args[3:]
     B = xdes.DEFAULT_BLOCK_STEPS
     state = xdes._init_state(cols, T, open_loop)
     n = len(ref.BLOCK_STATE)
@@ -616,60 +894,121 @@ def time_launch(cols, T, n_steps, open_loop, ops_per_thread_step,
         state = K.lock_sim_block(*state[:n], step0, *args, n_sub_steps=B,
                                  limit=n_steps, ids_checked=True,
                                  open_state=opn(state))
-    kern = lambda: K.lock_sim_block(*state[:n], warm, *args, n_sub_steps=B,
-                                    limit=n_steps, ids_checked=True,
-                                    open_state=opn(state))
-    plain = lambda: ref.lock_sim_block_ref(*state[:n], warm, *args,
-                                           n_sub_steps=B, limit=n_steps,
-                                           open_state=opn(state))
-    compare_states(kern(), plain(), "timing shape",
-                   OPEN_NAMES if open_loop else STATE_NAMES)
-    ms = median_ms(kern, 20)
-    plain_ms = median_ms(plain, 3)
     C = cols["policy"].shape[0]
-    live_steps = min(B, n_steps - warm)
-    state_bytes = sum(t.numel() * t.element_size() for t in state)
-    ctx_bytes = sum(t.numel() * t.element_size() for t in args
-                    if isinstance(t, torch.Tensor))
-    bytes_ms = (2 * state_bytes + ctx_bytes) / HBM_BYTES_PER_S * 1e3
     active = int(torch.clamp(cols["threads"], max=T).sum())
-    ops = live_steps * (active * ops_per_thread_step + C * ops_per_row_step)
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    return {"ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "shape": [C, T], "active_threads": active,
-            "n_sub_steps": B, "bytes_ms": bytes_ms, "operations_ms": ops_ms}
+    shape = [C, T]
+    out = {}
+    out["block"] = time_pair(
+        lambda: K.lock_sim_block(*state[:n], warm, *args, n_sub_steps=B,
+                                 limit=n_steps, ids_checked=True,
+                                 open_state=opn(state)),
+        lambda: ref.lock_sim_block_ref(*state[:n], warm, *args,
+                                       n_sub_steps=B, limit=n_steps,
+                                       open_state=opn(state)),
+        "timing shape", OPEN_NAMES if open_loop else STATE_NAMES, shape)
+    live_steps = min(B, n_steps - warm)
+    out["block"].update(n_sub_steps=B, active_threads=active, **roofline(
+        2 * nbytes(state) + nbytes(args),
+        live_steps * (active * ops_per_thread_step + C * ops_per_row_step)))
+
+    st, rem = state[0], state[1]
+    if not open_loop:
+        adv = advance_args(cols)
+        out["advance"] = time_pair(
+            lambda: K.lock_sim_step(st, rem, *adv),
+            lambda: ref.lock_sim_step_ref(st, rem, *adv),
+            "lock_sim_step timing shape", ("rem", "burn"), shape)
+        # in: st, rem and the four columns; out: rem' and burn (C,) f32
+        out["advance"].update(active_threads=active, **roofline(
+            nbytes((st, rem, *adv)) + nbytes((rem, cols["dt"])),
+            active * OPS_PER_THREAD_ADVANCE))
+    rem1, _, now2, i = step_inputs(cols, state, warm)
+    tstate = (st, rem1, *state[2:16], *(state[17:] if open_loop else ()))
+    out["transitions"] = time_pair(
+        lambda: K.lock_transitions_step(st, rem1, *state[2:16], now2, i,
+                                        *prm, open_state=opn(state),
+                                        ids_checked=True),
+        lambda: ref.lock_transitions_ref(st, rem1, *state[2:16], now2, i,
+                                         *prm, open_state=opn(state)),
+        "lock_transitions_step timing shape",
+        TRANSITION_NAMES + (ref.OPEN_STATE if open_loop else ()), shape)
+    extra = 10 if open_loop else 0      # free mask, its rank, busy mask
+    out["transitions"].update(active_threads=active, **roofline(
+        2 * nbytes(tstate) + nbytes(prm) + nbytes((now2, i)),
+        active * (OPS_PER_THREAD_TRANSITION + extra)
+        + C * ops_per_row_step))
+    return out
 
 
-def closed_entry(cfgs, steps, idx, launches, max_abs_err):
-    """K1 closed at the largest bucket shape of the at-size sweep."""
+def closed_entries(cfgs, steps, idx, launches, scan_launches, max_abs_err,
+                   step_abs_err):
+    """K1 closed, K2 and K3 closed at the largest bucket shape of the
+    at-size sweep (65 536 x 32)."""
     bucket = [cfgs[i] for i in idx]
     C = xdes._pad_quantum(len(bucket))
     bucket = bucket + [bucket[-1]] * (C - len(bucket))
     arrs = P.encode_configs(bucket)
     arrs["dt"], _ = xdes.plan_schedule(bucket, AT_SIZE_TARGET_CS)
     n_steps = min(int(steps[idx].max()), xdes.MAX_STEPS)
-    timing = time_launch(xdes.columns_from_numpy(arrs, DEV), 32, n_steps,
-                         False, OPS_PER_THREAD_STEP)
-    return {"name": "lock_sim_block", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/lock_sim_block.cu",
-            "replaces": "src/repro/kernels/lock_sim.py:463",
-            "launches": launches, "max_abs_err": max_abs_err, **timing}
+    timing = time_launches(xdes.columns_from_numpy(arrs, DEV), 32, n_steps,
+                           False, OPS_PER_THREAD_STEP)
+    src = "src/repro_torch/kernels/csrc/"
+    fig3, opened = scan_launches["fig3"], scan_launches["open_matrix"]
+    return [
+        {"name": "lock_sim_block", "route": "cuda",
+         "source": src + "lock_sim_block.cu",
+         "replaces": "src/repro/kernels/lock_sim.py:463",
+         "launches": launches, "max_abs_err": max_abs_err,
+         **timing["block"]},
+        {"name": "lock_sim_step", "route": "cuda",
+         "source": src + "lock_sim_step.cu",
+         "replaces": "src/repro/kernels/lock_sim.py:106",
+         "launches": fig3[0] + opened[0], "max_abs_err": step_abs_err,
+         **timing["advance"]},
+        {"name": "lock_transitions_step", "route": "cuda",
+         "source": src + "lock_transitions_step.cu",
+         "replaces": "src/repro/kernels/lock_sim.py:339",
+         "launches": fig3[1], "max_abs_err": step_abs_err,
+         **timing["transitions"]}]
 
 
-def open_entry(arrs, res, launches, max_abs_err):
-    """K1-open at the largest chunk shape of the arrival at-size sweep."""
+def open_entries(arrs, res, launches, scan_launches, max_abs_err,
+                 step_abs_err):
+    """K1-open and K3-open at the largest chunk shape of the arrival
+    at-size sweep (100 080 x 32)."""
     n = min(res.chunk_size, res.n_configs)
     part = {k: v[:n] for k, v in arrs.items()}
-    timing = time_launch(xdes.columns_from_numpy(part, DEV), 32,
-                         res.n_steps, True, OPS_PER_THREAD_STEP_OPEN,
-                         OPS_PER_ROW_STEP_OPEN)
-    return {"name": "lock_sim_block_open", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/lock_sim_block.cu",
-            "replaces": "src/repro/kernels/lock_sim.py:463 (open_run=True, "
-                        "lock_sim.py:457-481)",
-            "launches": launches, "max_abs_err": max_abs_err, **timing}
+    timing = time_launches(xdes.columns_from_numpy(part, DEV), 32,
+                           res.n_steps, True, OPS_PER_THREAD_STEP_OPEN,
+                           OPS_PER_ROW_STEP_OPEN)
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        {"name": "lock_sim_block_open", "route": "cuda",
+         "source": src + "lock_sim_block.cu",
+         "replaces": "src/repro/kernels/lock_sim.py:463 (open_run=True, "
+                     "lock_sim.py:457-481)",
+         "launches": launches, "max_abs_err": max_abs_err,
+         **timing["block"]},
+        {"name": "lock_transitions_step_open", "route": "cuda",
+         "source": src + "lock_transitions_step.cu",
+         "replaces": "src/repro/kernels/lock_sim.py:339 (open_state, "
+                     "lock_sim.py:314-359)",
+         "launches": scan_launches["open_matrix"][2],
+         "max_abs_err": step_abs_err, **timing["transitions"]}]
+
+
+def oracle_entry(args):
+    """K4 at 10**6 configs; on no path of the system, so 0 launches."""
+    timing = time_pair(lambda: K.oracle_step(*args, ids_checked=True),
+                       lambda: ref.oracle_update_ref(*args),
+                       "oracle_step timing shape", ("delta", "cnt", "ewma"),
+                       [ORACLE_CONFIGS])
+    return {"name": "oracle_step", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/oracle_step.cu",
+            "replaces": "src/repro/kernels/lock_sim.py:173",
+            "launches": 0, "max_abs_err": 0.0, **timing,
+            **roofline(nbytes(args) + 3 * nbytes(args[:1]),
+                       ORACLE_CONFIGS * OPS_PER_ROW_ORACLE)}
 
 
 FIG3_TARGET_CS = 25
@@ -708,12 +1047,18 @@ def main():
 
     max_abs_err = phase_kernel_vs_plain()
     open_abs_err = phase_open_kernel_vs_plain()
+    step_abs_err = phase_step_kernels_vs_plain()
+    oracle_args = phase_oracle_kernel_vs_plain()
     phase_fig3()
+    scan_launches = phase_scan_equals_blocked()
     cfgs, steps, big, launches = phase_at_size(AT_SIZE_SCENARIOS)
     phase_stream_identity()
     arrs, _, ares, open_launches = phase_arrival_at_size()
-    entries = [closed_entry(cfgs, steps, big, launches, max_abs_err),
-               open_entry(arrs, ares, open_launches, open_abs_err)]
+    entries = (closed_entries(cfgs, steps, big, launches, scan_launches,
+                              max_abs_err, step_abs_err)
+               + open_entries(arrs, ares, open_launches, scan_launches,
+                              open_abs_err, step_abs_err)
+               + [oracle_entry(oracle_args)])
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True,

@@ -15,17 +15,19 @@ plain version everywhere with ``backend="ref"``).  After every block the
 loop reads one flag back — ``all(completed >= target_cs)`` — and **exits
 early** when every config has converged, exactly at the block boundaries
 where the reference's ``while_loop`` does, so ``steps_run`` and ``t_end``
-agree.  ``rollout="scan"`` is the per-step path on the plain versions
-(advance, fault rewind, transitions, one step at a time): the parity
-reference the blocked path is pinned bit-identical against.
+agree.  ``rollout="scan"`` is the per-step path: the GPS advance
+(:func:`~repro_torch.kernels.lock_sim.lock_sim_step`), the fault rewind
+(plain PyTorch, as in the reference) and one transition stage
+(:func:`~repro_torch.kernels.lock_sim.lock_transitions_step`) per step, two
+kernel launches per step on the card, no early exit: the parity reference
+the blocked path is pinned bit-identical against.
 
 Entry points run on the card: ``device=None`` resolves to CUDA and raises
 when there is none.  Pass ``device="cpu"`` to run the plain versions on the
 host, as the tests do.
 
-Not ported yet (each raises ``NotImplementedError`` naming its slice):
-``shard=True`` (the multi-GPU config-axis split) and ``rollout="scan"`` on
-the kernel backend (the per-step kernels).
+Not ported yet: ``shard=True`` (the multi-GPU config-axis split) raises
+``NotImplementedError`` naming its slice.
 """
 
 from __future__ import annotations
@@ -60,10 +62,6 @@ _CTR = ref.BLOCK_STATE.index("ctr")
 _SHARD_LATER = ("shard=True is not ported yet: the multi-GPU config-axis "
                 "split (ROADMAP.md M7) lands after the single-card path is "
                 "whole")
-_SCAN_KERNEL_LATER = ("rollout='scan' on the kernel backend needs the "
-                      "per-step kernels (lock_sim_step, "
-                      "lock_transitions_step), which are not ported yet; "
-                      "use backend='ref'")
 
 
 # --------------------------------------------------------------------------
@@ -215,6 +213,23 @@ def _out_dict(state, executed: int, cols, keep_per_thread: bool = True):
     return out
 
 
+def _step_backends(backend: str):
+    """The (advance, transitions) pair of the scan rollout: the kernel
+    wrappers, or the plain versions."""
+    if backend == "kernel":
+        return K.lock_sim_step, K.lock_transitions_step
+    if backend == "ref":
+        return ref.lock_sim_step_ref, ref.lock_transitions_ref
+    raise ValueError(f"unknown backend {backend!r} (kernel|ref)")
+
+
+def _check_kernel_ids(cols, open_loop: bool) -> None:
+    """Check the id columns once per rollout, so that no launch has to."""
+    K.check_id_columns(cols["policy"], cols["oracle"], cols["workload"],
+                       cols["fault"], cols["tb"], cols["arrival"],
+                       open_loop=open_loop)
+
+
 def _simulate_core(cols, n_steps: int, T: int, backend: str = "kernel",
                    rollout: str = "blocked",
                    block_steps: int = DEFAULT_BLOCK_STEPS,
@@ -230,7 +245,8 @@ def _simulate_core(cols, n_steps: int, T: int, backend: str = "kernel",
     ``target_cs`` critical sections; the test is one device-to-host read
     per block.  ``early_exit=None`` means on iff ``target_cs > 0``.
     ``rollout="scan"``: one advance / rewind / transition triple per step
-    on the plain versions, no early exit — the parity reference.
+    (two kernel launches on the kernel backend), no early exit — the
+    parity reference.
     ``open_loop=True`` carries the 11 OPEN_STATE arrays as well (28 in
     all) on every rollout and backend."""
     n_steps = int(n_steps)
@@ -244,24 +260,27 @@ def _simulate_core(cols, n_steps: int, T: int, backend: str = "kernel",
         raise ValueError(f"unknown backend {backend!r} (kernel|ref)")
 
     if rollout == "scan":
-        if backend == "kernel":
-            raise NotImplementedError(_SCAN_KERNEL_LATER)
+        advance, transitions = _step_backends(backend)
+        if backend == "kernel":     # ids checked once here, not per launch
+            _check_kernel_ids(cols, open_loop)
+            transitions = functools.partial(transitions, ids_checked=True)
         dt = cols["dt"]
         spin_cpu = state[16]
         ostate = state[17:] if open_loop else None
         state = state[:16]
+        steps = torch.arange(n_steps, dtype=torch.int32, device=dt.device)
         for step in range(n_steps):
             st, rem = state[0], state[1]
-            i = torch.tensor(step, dtype=torch.int32, device=dt.device)
+            i = steps[step]
             i_f = i.to(torch.float32)
             now2 = (i_f + 1.0) * dt
-            rem, burn = ref.lock_sim_step_ref(st, rem, cols["alpha"],
-                                              cols["cores"], dt, has_budget)
+            rem, burn = advance(st, rem, cols["alpha"], cols["cores"], dt,
+                                has_budget)
             rem = ref.fault_rewind(st, rem, cols["alpha"], cols["cores"],
                                    dt, i_f * dt, cols["seed"], cols["fault"],
                                    cols["flt_rate"], cols["flt_scale"])
-            out = ref.lock_transitions_ref(st, rem, *state[2:], now2, i,
-                                           *prm, open_state=ostate)
+            out = transitions(st, rem, *state[2:], now2, i, *prm,
+                              open_state=ostate)
             state, ostate = out[:16], (out[16:] if open_loop else None)
             spin_cpu = spin_cpu + burn
         return _out_dict((*state, spin_cpu, *(ostate or ())), n_steps, cols,
@@ -271,9 +290,7 @@ def _simulate_core(cols, n_steps: int, T: int, backend: str = "kernel",
         raise ValueError(f"unknown rollout {rollout!r} (blocked|scan)")
 
     if backend == "kernel":     # ids checked once here, not per launch
-        K.check_id_columns(cols["policy"], cols["oracle"], cols["workload"],
-                           cols["fault"], cols["tb"], cols["arrival"],
-                           open_loop=open_loop)
+        _check_kernel_ids(cols, open_loop)
         block = functools.partial(K.lock_sim_block, ids_checked=True)
     else:
         block = ref.lock_sim_block_ref
@@ -610,8 +627,10 @@ def simulate_batch(configs, *, target_cs: int = 300,
 
     * ``rollout="blocked"`` (default) fuses ``block_steps`` timesteps
       (default :data:`DEFAULT_BLOCK_STEPS`) into one launch per loop
-      iteration — bit-identical to ``rollout="scan"`` (plain versions
-      only), the per-step parity reference.
+      iteration — bit-identical to ``rollout="scan"``, the per-step parity
+      reference (a :func:`~repro_torch.kernels.lock_sim.lock_sim_step` and
+      a :func:`~repro_torch.kernels.lock_sim.lock_transitions_step` launch
+      per step on the kernel backend).
     * ``early_exit`` (default: on iff ``n_steps`` is auto-planned) stops
       the blocked rollout at the first block boundary where every config
       has completed ``target_cs`` critical sections;

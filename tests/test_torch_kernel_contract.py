@@ -59,6 +59,17 @@ def test_header_parses():
     src = (K.CSRC / "lock_sim_block.cu").read_text()
     assert '#include "lock_sim_consts.cuh"' in src
     assert "lock_sim_block_launch" in src
+    # every kernel source sees the same constants and shared stages, and
+    # defines the C entry point its wrapper loads
+    for name in K.KERNEL_SOURCES:
+        src = (K.CSRC / name).read_text()
+        assert '#include "lock_sim_consts.cuh"' in src, name
+        assert '#include "lock_sim_stages.cuh"' in src, name
+        entry = name.removesuffix(".cu") + "_launch"
+        assert re.search(r'extern "C" int ' + entry + r"\(", src), name
+        assert callable(getattr(K, name.removesuffix(".cu"))), name
+    assert set(K.KERNEL_HEADERS) == {p.name for p in K.CSRC.glob("*.cuh")}
+    assert set(K.KERNEL_SOURCES) == {p.name for p in K.CSRC.glob("*.cu")}
 
 
 @pytest.mark.parametrize("name,value", [
@@ -111,6 +122,11 @@ def test_id_tables_equal(prefix, table):
 def test_wrapper_admits_exactly_the_registry(column, count, registry):
     assert K.KERNEL_IDS[column] == frozenset(registry.values())
     assert CONSTS[count] == len(registry)
+    if column == "oracle":          # oracle_step's own check
+        ids = torch.tensor(sorted(registry.values()), dtype=torch.int32)
+        K.check_oracle_ids(ids)
+        with pytest.raises(ValueError, match="oracle ids"):
+            K.check_oracle_ids(torch.cat([ids, ids[-1:] + 1]))
 
 
 def test_wrapper_admits_only_the_closed_arrival_row():
@@ -155,6 +171,10 @@ def test_kernel_context_is_block_context_minus_open_columns():
     assert tuple(n for n, _ in K._OPEN_CTX) == open_cols
     assert sorted(names + open_cols) == sorted(ref.BLOCK_CONTEXT)
     assert ref.BLOCK_CONTEXT[5:] == ref.TRANSITION_CONTEXT[2:]
+    # the transition kernel takes the same columns from policy on
+    assert K._TRANSITION_CTX == K._KERNEL_CTX[5:] + K._OPEN_CTX
+    assert sorted(n for n, _ in K._TRANSITION_CTX) == \
+        sorted(ref.TRANSITION_CONTEXT[2:])
     assert xdes._PRM_FIELDS == ref.TRANSITION_CONTEXT[2:]
     assert K.NVCC_FLAGS.count("-fmad=false") == 1
     assert "arch=compute_90a,code=sm_90a" in K.NVCC_FLAGS
@@ -181,6 +201,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys; import repro_torch; import repro_torch.core.xdes; "
             "import repro_torch.core.policy; import repro_torch.kernels.ref; "
             "import repro_torch.kernels.lock_sim; "
+            "from repro_torch.kernels.lock_sim import lock_sim_block, "
+            "lock_sim_step, lock_transitions_step, oracle_step; "
             "import repro_torch.configs.catalog; "
             "import repro_torch.core.stream; "
             "import repro_torch.core.mutlock; "

@@ -161,9 +161,10 @@ def test_pad_configs_invariance():
 
 
 def test_unported_paths_raise():
-    """Open-arrival configs run now (auto-detected or forced);
-    ``shard=True`` and ``rollout="scan"`` on the kernel backend still
-    raise, naming their slice."""
+    """Open-arrival configs and ``rollout="scan"`` on the kernel backend
+    run now (on CPU tensors the scan's wrappers take the plain versions,
+    so it equals ``backend="ref"`` bit for bit); ``shard=True`` still
+    raises, naming its slice."""
     closed = SimConfig("mutable", 4, 4, SHORT, SHORT)
     opened = SimConfig("mutable", 4, 4, SHORT, SHORT, arrival="poisson",
                        arrival_rate=1e5)
@@ -176,9 +177,16 @@ def test_unported_paths_raise():
                                 device="cpu").lat_hist is None
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         txdes.simulate_batch([closed], n_steps=8, shard=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="per-step kernels"):
-        txdes.simulate_batch([closed], n_steps=8, rollout="scan",
-                             backend="kernel", device="cpu")
+    scans = [txdes.simulate_batch([closed, opened], n_steps=40,
+                                  rollout="scan", backend=backend,
+                                  device="cpu")
+             for backend in ("kernel", "ref")]
+    for f in ("completed", "completed_per_thread", "wake_count",
+              "final_sws", "spin_cpu", "t_end", "steps_run", "lat_hist",
+              "arrived", "departed", "lat_sum", "occ_int"):
+        np.testing.assert_array_equal(getattr(scans[0], f),
+                                      getattr(scans[1], f), err_msg=f)
+    assert scans[0].completed.sum() > 0
     with pytest.raises(ValueError, match="backend"):
         txdes.simulate_batch([closed], n_steps=8, backend="pallas",
                              device="cpu")
