@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Needs one CUDA card, ``nvcc`` and nothing else: the kernel library (the
-closed and open variants of ``lock_sim_block`` and ``lock_transitions_step``,
-``lock_sim_step`` and ``oracle_step``) is built from
+Needs one CUDA card, ``nvcc`` and nothing else: the two kernel libraries
+(the simulator's: the closed and open variants of ``lock_sim_block`` and
+``lock_transitions_step``, ``lock_sim_step`` and ``oracle_step``; the
+language model's: ``flash_attention`` and ``rmsnorm``) are built from
 ``src/repro_torch/kernels/csrc`` by this run.  Exits non-zero, printing no
 result line, when there is no CUDA device or when any phase fails.
 
@@ -13,10 +14,34 @@ Phases (each but the first prints one JSON line):
 
 1. the card's name and power limit, the line ``nvidia-smi
    --query-gpu=name,power.limit --format=csv,noheader`` prints
-2. ``build``   nvcc build of the kernel library (one compiler per source,
-   all at once): seconds, and ptxas's registers / spills for each
-   instantiation (closed and open variants at 1, 2 and 4 thread slots per
-   lane)
+2. ``build``   nvcc build of both libraries at once (one compiler per
+   source): seconds, and ptxas's registers / spills for each instantiation
+   (the simulator's closed and open variants at 1, 2 and 4 thread slots per
+   lane; ``flash_attention`` per dtype x head-dim class; ``rmsnorm`` per
+   x / w dtype x vector width)
+LM1. ``flash_attention_vs_plain``  ``flash_attention`` against
+   ``flash_attention_ref``, both on the card, over dtype {f32, bf16} x hd
+   {16, 64, 80, 128, 256} x Sq = Sk {1, 77, 1024, 2048} x GQA group {1, 4}
+   x causal x window {0, 64} x softcap {0, 30}, plus 300 queries against
+   1024 keys: max|d| <= 2e-5 (f32) / the smaller of 2e-2 and two bf16 ulps
+   of the plain output + 2e-5 (bf16); hd 12 and 264 refused.
+LM2. ``rmsnorm_vs_plain``  ``rmsnorm`` against ``rmsnorm_ref`` on rows x D
+   {1x64, 7x80, 4x2048, 4096x2048, 3x8192}, f32 (rtol 2e-6) and bf16
+   (one bf16 ulp), w in x's dtype; D=70, a w in f32 under bf16 x and a
+   row not 16-byte aligned refused.
+LM3. ``lm_vs_plain``  llama3.2-1b at full width cut to 2 layers, f32, one
+   seeded set of weights: a 300-token prefill and 8 decode steps on the
+   card (through the kernels) and on the CPU (plain versions), the card
+   fed the CPU's greedy tokens: logits max|d| <= 1e-3, greedy tokens equal
+   wherever the CPU's top-2 margin exceeds 1e-2.
+LM4. ``serve_at_size``  full llama3.2-1b (16 layers, bf16, random weights
+   from a seed) through ``repro_torch.launch.serve``'s code path: the
+   mutable policy, 4 slots, max_seq 2048, 16 requests of 128-1024 prompt
+   tokens, 32 new tokens each: seconds, generated tokens/s, median prefill
+   and decode-step ms, the kernels' launches, peak bytes, and the device's
+   idle share from a second, traced pass; every request must finish with
+   every token in [0, V), every prefill and every decode step launching
+   K8 2 * layers + 1 times and every prefill K5 once per layer.
 3. ``kernel_vs_plain``  ``lock_sim_block`` against ``lock_sim_block_ref``,
    both on the card, chained from the engine's initial state for 256 steps
    over the closed conformance matrix (every policy id x workload x fault,
@@ -41,7 +66,7 @@ Phases (each but the first prints one JSON line):
    on 10**6 seeded rows (the simulator's domain plus negative ``sws``,
    ``cnt`` and ``k + 1``, where floor division differs from C's), exactly.
 7. ``fig3``    ``simulate_batch`` on the 320-config Fig. 3 grid, auto
-   horizon for target_cs=25 with early exit, ``backend="kernel"`` against
+   horizon for target_cs=18 with early exit, ``backend="kernel"`` against
    ``backend="ref"`` on the card; equal under the same rule;
    ``validate()`` passes.
 8. ``scan_equals_blocked``  the scan rollout, this slice's path:
@@ -71,7 +96,11 @@ Phases (each but the first prints one JSON line):
    card kept busy while the host enqueues the launch), the plain
    version's time at the same shape, the roofline bound, and the launches
    its path made (the block kernel in the sweeps, the step pair in the
-   scan rollouts, ``oracle_step`` on no path: 0).
+   scan rollouts, ``oracle_step`` on no path: 0); ``flash_attention`` at
+   one prefill layer of llama3.2-1b and ``rmsnorm`` at a prefill and a
+   decode shape, with the PyTorch call that computes the same function
+   (``library_ms``: ``scaled_dot_product_attention``, ``rms_norm``) and
+   the launches of ``serve_at_size``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -101,8 +130,18 @@ from repro_torch.core import policy as P  # noqa: E402
 from repro_torch.core import stream as S  # noqa: E402
 from repro_torch.core import xdes  # noqa: E402
 from repro_torch.core.policy import SimConfig  # noqa: E402
+from repro_torch.kernels import build as KB  # noqa: E402
+from repro_torch.kernels import lm_lib  # noqa: E402
 from repro_torch.kernels import lock_sim as K  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention as LMA  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm as LMN  # noqa: E402
+
+# full f32 products in the plain versions and the f32 model on the card
+# (PyTorch's defaults, stated): TF32 would keep three digits
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 DEV = torch.device("cuda")
 STATE_NAMES = ref.BLOCK_STATE
@@ -630,24 +669,23 @@ def timed_sweep(cfgs, **kw):
     return res, time.perf_counter() - t0, K.lock_sim_block.launches
 
 
-def profiled(run):
-    """One more pass of ``run`` (which returns its seconds second) under
-    ``torch.profiler``: (seconds of the traced pass, device seconds summed
-    over every kernel and copy, device seconds of ``lock_sim_block_kernel``
-    alone).  All work is on one stream, so the sum is the time the device
-    was busy."""
+def profiled(run, *kernels):
+    """One more pass of ``run`` under ``torch.profiler``, tracing the card:
+    (what ``run`` returns, device seconds summed over every kernel and
+    copy, then the device seconds of each kernel whose name contains one of
+    ``kernels``).  All work is on one stream, so the sum is the time the
+    device was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        seconds = run()[1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = run()
+        torch.cuda.synchronize()
     on_device = [e for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in on_device) * 1e-6
-    kernel = sum(e.self_device_time_total for e in on_device
-                 if "lock_sim_block_kernel" in e.key) * 1e-6
-    return seconds, busy, kernel
+    return (res, busy, *(sum(e.self_device_time_total for e in on_device
+                             if name in e.key) * 1e-6 for name in kernels))
 
 
 def phase_stream_identity():
@@ -750,7 +788,8 @@ def phase_arrival_at_size():
     if int(res.departed.sum()) <= 0 or res.wins.sum() != C // V:
         fail("arrival_at_size: no request departed, or wins miscounted")
     _, s_again, _, _ = sweep()
-    traced_s, busy, kernel_busy = profiled(sweep)
+    res_t, busy, kernel_busy = profiled(sweep, "lock_sim_block_kernel")
+    traced_s = res_t[1]
     ok = kernel_busy > 0.0
     windowed = lambda lock: P.POLICY_ROW[P.POLICY_IDS[lock]].windowed
     names = [f"{v['lock']}/{v['oracle']}" if windowed(v["lock"])
@@ -800,7 +839,9 @@ def phase_at_size(n_scenarios):
     # the same sweep without it, then with it once more
     _, s_noflag, l_noflag = timed_sweep(cfgs, early_exit=False)
     _, s_again, l_again = timed_sweep(cfgs)
-    s_traced, busy, kernel_busy = profiled(lambda: timed_sweep(cfgs))
+    res_t, busy, kernel_busy = profiled(lambda: timed_sweep(cfgs),
+                                        "lock_sim_block_kernel")
+    s_traced = res_t[1]
     traced = kernel_busy > 0.0      # a trace without device time: no reading
     config_steps = int(res.steps_run.astype(np.int64).sum())
     emit({"phase": "at_size", "configs": len(cfgs), "threads_axis": 32,
@@ -1011,7 +1052,405 @@ def oracle_entry(args):
                        ORACLE_CONFIGS * OPS_PER_ROW_ORACLE)}
 
 
-FIG3_TARGET_CS = 25
+# --------------------------------------------------------------------------
+# The language model's serving path: K5 flash_attention, K8 rmsnorm
+# --------------------------------------------------------------------------
+#: Dense bf16 tensor-core peak of the H100 SXM (data sheet, 700 W): the
+#: floor of K5's products, whatever pipe the kernel uses.
+BF16_TENSOR_OPS_PER_S = 989e12
+FLASH_HDS = (16, 64, 80, 128, 256)
+FLASH_SEQS = (1, 77, 1024, 2048)
+FLASH_LIMIT = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+RMS_SHAPES = ((1, 64), (7, 80), (4, 2048), (4096, 2048), (3, 8192))
+LM_VS_PLAIN_PROMPT = 300
+LM_VS_PLAIN_STEPS = 8
+SERVE_ARGV = ["--arch", "llama3.2-1b", "--requests", "16", "--slots", "4",
+              "--max-seq", "2048", "--max-new", "32", "--prompt-min", "128",
+              "--prompt-max", "1025", "--policy", "mutable", "--seed", "0"]
+
+
+def flash_excess(got, want):
+    """max over the outputs of |got - want| / limit: the limit is
+    FLASH_LIMIT in f32; in bf16 it is the smaller of FLASH_LIMIT and two
+    bf16 ulps of the plain output plus the f32 limit (the f32 math's own
+    error, which the final rounding can turn into one ulp), so that it
+    shrinks with the output.  At most 1 where the kernel agrees."""
+    d = (got.float() - want.float()).abs()
+    lim = FLASH_LIMIT[got.dtype]
+    if got.dtype == torch.bfloat16:
+        lim = torch.clamp(2.0 * bf16_ulp(want) + FLASH_LIMIT[torch.float32],
+                          max=lim)
+    return float((d / lim).max())
+
+
+def flash_cases():
+    """(dtype, hd, Sq, Sk, group, causal, window, softcap): the matrix
+    dtype x hd x Sq = Sk x group x causal x window x softcap, then Sq != Sk
+    (300 queries against 1024 keys) over the mask options."""
+    masks = [(c, w, s) for c in (True, False) for w in (0, 64)
+             for s in (0.0, 30.0)]
+    for dtype in FLASH_LIMIT:
+        for hd in FLASH_HDS:
+            for S in FLASH_SEQS:
+                for group in (1, 4):
+                    for m in masks:
+                        yield (dtype, hd, S, S, group, *m)
+        for group in (1, 4):
+            for m in masks:
+                yield (dtype, 64, 300, 1024, group, *m)
+
+
+def phase_flash_attention_vs_plain():
+    """K5 against flash_attention_ref, both on the card."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    worst = {str(d).split(".")[1]: 0.0 for d in FLASH_LIMIT}
+    excess = dict(worst)
+    n = 0
+    before = LMA.launches
+    for dtype, hd, Sq, Sk, group, causal, window, softcap in flash_cases():
+        BH = 4
+        q = torch.randn((BH, Sq, hd), generator=gen, device=DEV).to(dtype)
+        k, v = (torch.randn((BH // group, Sk, hd), generator=gen,
+                            device=DEV).to(dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = LMA(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        where = (f"flash_attention {dtype} hd={hd} Sq={Sq} Sk={Sk} "
+                 f"group={group} {kw}")
+        if got.shape != want.shape or got.dtype != dtype:
+            fail(f"{where}: {got.shape} {got.dtype}")
+        err = float((got.float() - want.float()).abs().max())
+        over = flash_excess(got, want)
+        if not torch.isfinite(got).all() or not over <= 1.0:
+            fail(f"{where}: max|d| {err}, {over} x its limit")
+        name = str(dtype).split(".")[1]
+        worst[name] = max(worst[name], err)
+        excess[name] = max(excess[name], over)
+        n += 1
+    torch.cuda.synchronize()
+    refused = []
+    for hd in (12, 264):
+        q = torch.zeros((4, 8, hd), device=DEV, dtype=torch.bfloat16)
+        try:
+            LMA(q, q, q)
+        except ValueError:
+            refused.append(hd)
+    if refused != [12, 264]:
+        fail(f"flash_attention: hd 12 / 264 not refused ({refused})")
+    launches = LMA.launches - before
+    if launches != n:
+        fail(f"flash_attention: {launches} launches for {n} cases")
+    emit({"phase": "flash_attention_vs_plain", "cases": n,
+          "max_abs_err": worst, "limit": {str(d).split(".")[1]: l
+                                          for d, l in FLASH_LIMIT.items()},
+          "bf16_limit": "min(2e-2, 2 bf16 ulps of the plain output + 2e-5)",
+          "max_err_over_limit": excess,
+          "refused_hd": refused, "seconds": time.perf_counter() - t0})
+    return max(worst.values())
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each value of x (f32), 2^-133 at 0."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def phase_rmsnorm_vs_plain():
+    """K8 against rmsnorm_ref on the card: f32 within rtol 2e-6, bf16
+    within one bf16 ulp of the plain output; w in x's dtype.  A D that is
+    not a multiple of the 16-byte vector, a w in another dtype and a
+    misaligned row are refused."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    out = {"phase": "rmsnorm_vs_plain", "cases": 0, "f32_max_rel": 0.0,
+           "bf16_max_ulps": 0.0, "max_abs_err": 0.0}
+    for rows, D in RMS_SHAPES:
+        x32 = torch.randn((rows, D), generator=gen, device=DEV) * 3.0
+        w32 = torch.randn((D,), generator=gen, device=DEV) * 0.1
+        for xd in (torch.float32, torch.bfloat16):
+            x, w = x32.to(xd), w32.to(xd)
+            got, want = LMN(x, w), ref.rmsnorm_ref(x, w)
+            where = f"rmsnorm {rows}x{D} {xd}"
+            if got.dtype != xd or got.shape != x.shape:
+                fail(f"{where}: {got.dtype} {got.shape}")
+            d = (got.float() - want.float()).abs()
+            if xd == torch.float32:
+                rel = float((d / want.abs().clamp_min(1e-30)).max())
+                if not rel <= 2e-6:
+                    fail(f"{where}: rel {rel} over 2e-6")
+                out["f32_max_rel"] = max(out["f32_max_rel"], rel)
+            else:
+                ulps = float((d / bf16_ulp(want)).max())
+                if not ulps <= 1.0:
+                    fail(f"{where}: {ulps} bf16 ulps")
+                out["bf16_max_ulps"] = max(out["bf16_max_ulps"], ulps)
+            out["max_abs_err"] = max(out["max_abs_err"], float(d.max()))
+            out["cases"] += 1
+    x = torch.zeros((5, 72), device=DEV, dtype=torch.bfloat16)
+    w = torch.zeros((72,), device=DEV, dtype=torch.bfloat16)
+    flat = torch.zeros((1 + 72,), device=DEV, dtype=torch.bfloat16)
+    refused = []
+    for name, args in (("D=70", (x[:, :70].contiguous(), w[:70])),
+                       ("w f32", (x, w.float())),
+                       ("misaligned", (flat[1:].view(1, 72), w))):
+        n = LMN.launches
+        try:
+            LMN(*args)
+        except (ValueError, TypeError):
+            refused.append(name)
+        if LMN.launches != n:
+            fail(f"rmsnorm: launched on {name}")
+    if len(refused) != 3:
+        fail(f"rmsnorm: refused only {refused}")
+    out["refused"] = refused
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out["max_abs_err"]
+
+
+def lm_run(cfg, model, device, prompt, n_steps, forced=None):
+    """Prefill ``prompt`` and take ``n_steps`` decode steps, feeding the
+    tokens ``forced`` or, without them, the greedy token of the previous
+    logits: (the logits of the prefill and of every step, f32 on the host;
+    the tokens fed)."""
+    from repro_torch import models
+    from repro_torch.serve import DecodeEngine, Request
+    eng = DecodeEngine(cfg, model, max_slots=1,
+                       max_seq=len(prompt) + n_steps + 8, device=device)
+    toks = torch.tensor([prompt], device=device)
+    logits, cache1 = models.prefill(cfg, eng.params, {"tokens": toks})
+    out, fed = [logits[0].float().cpu()], []
+    eng.insert(0, cache1, len(prompt), 0, Request(0, prompt, n_steps + 1))
+    for i in range(n_steps):
+        tok = int(out[-1].argmax()) if forced is None else forced[i]
+        fed.append(tok)
+        logits, eng.cache = models.decode_step(
+            cfg, eng.params, eng.cache, torch.tensor([[tok]], device=device))
+        out.append(logits[0].float().cpu())
+    return out, fed
+
+
+def phase_lm_vs_plain():
+    """llama3.2-1b at full width cut to 2 layers, f32, one seeded set of
+    parameters: a 300-token prefill and 8 decode steps on the card (K5, K8)
+    and on the CPU (plain versions), the card fed the CPU's greedy
+    tokens."""
+    import copy
+
+    from repro_torch import models
+    from repro_torch.configs import base as CB
+    cfg = CB.get_config("llama3.2-1b").replace(
+        num_layers=2, dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    cpu_model = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    rng = np.random.default_rng(0)
+    prompt = [int(t) for t in rng.integers(2, cfg.vocab_size - 1,
+                                           LM_VS_PLAIN_PROMPT)]
+    cpu, forced = lm_run(cfg, cpu_model, "cpu", prompt, LM_VS_PLAIN_STEPS)
+    k5, k8 = LMA.launches, LMN.launches
+    gpu, _ = lm_run(cfg, gpu_model, DEV, prompt, LM_VS_PLAIN_STEPS, forced)
+    k5, k8 = LMA.launches - k5, LMN.launches - k8
+    if k5 != cfg.num_layers or k8 != (2 * cfg.num_layers + 1) * (
+            LM_VS_PLAIN_STEPS + 1):
+        fail(f"lm_vs_plain: {k5} K5 / {k8} K8 launches on the card")
+    worst, clear, agree = 0.0, 0, 0
+    for i, (c, g) in enumerate(zip(cpu, gpu)):
+        if not torch.isfinite(g).all():
+            fail(f"lm_vs_plain: non-finite logits at step {i}")
+        worst = max(worst, float((c - g).abs().max()))
+        top2 = torch.topk(c, 2).values
+        if float(top2[0] - top2[1]) > 1e-2:
+            clear += 1
+            if int(g.argmax()) != int(c.argmax()):
+                fail(f"lm_vs_plain: greedy token differs at step {i} "
+                     f"(CPU margin {float(top2[0] - top2[1])})")
+            agree += 1
+    if not worst <= 1e-3:
+        fail(f"lm_vs_plain: logits max|d| {worst} over 1e-3")
+    emit({"phase": "lm_vs_plain", "arch": "llama3.2-1b", "layers": 2,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "dtype": "float32",
+          "prompt": LM_VS_PLAIN_PROMPT, "decode_steps": LM_VS_PLAIN_STEPS,
+          "logits_max_abs_err": worst, "limit": 1e-3,
+          "steps_compared": len(cpu), "steps_with_clear_margin": clear,
+          "greedy_equal": agree, "k5_launches": k5, "k8_launches": k8,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_serve_at_size():
+    """Full llama3.2-1b (16 layers, bf16, random weights from a seed)
+    through ``repro_torch.launch.serve``'s code path: the mutable policy,
+    4 slots, max_seq 2048, 16 requests of 128-1024 prompt tokens, 32 new
+    tokens each."""
+    from repro_torch.launch import serve
+    args = serve.parse_args(SERVE_ARGV)
+    t0 = time.perf_counter()
+    cfg, engine = serve.build(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    warm = serve.parse_args(SERVE_ARGV[:2] + ["--requests", "2", "--slots",
+                                              "4", "--max-new", "2",
+                                              "--seed", "1"])
+    serve.run(warm, cfg, engine)               # cuBLAS handles, first calls
+    k8_prefill = [0]
+    real_prefill = engine.prefill
+
+    def prefill(prompt):
+        n = LMN.launches
+        res = real_prefill(prompt)
+        k8_prefill[0] += LMN.launches - n
+        return res
+
+    engine.prefill = prefill
+    engine.prefill_seconds.clear()
+    engine.step_seconds.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LMA.launches = LMN.launches = 0            # the main path, counted
+    try:
+        out = serve.run(args, cfg, engine)
+        torch.cuda.synchronize()
+    finally:
+        engine.prefill = real_prefill
+    k5, k8, k8_pre = LMA.launches, LMN.launches, k8_prefill[0]
+    peak = torch.cuda.max_memory_allocated()
+    reqs, s = out["requests"], out["summary"]
+    if s["completed"] != args.requests:
+        fail(f"serve_at_size: {s['completed']} of {args.requests} done")
+    for r in reqs:
+        if len(r.generated) != args.max_new or not all(
+                0 <= t < cfg.vocab_size for t in r.generated):
+            fail(f"serve_at_size: request {r.rid} generated {r.generated}")
+    prefill_ms = [t * 1e3 for t in engine.prefill_seconds]
+    step_ms = [t * 1e3 for t in engine.step_seconds]
+    per_forward = 2 * cfg.num_layers + 1
+    if (len(prefill_ms) != args.requests
+            or k5 != cfg.num_layers * args.requests
+            or k8_pre != per_forward * args.requests
+            or k8 - k8_pre != per_forward * len(step_ms)):
+        fail(f"serve_at_size: {k5} K5 / {k8_pre} + {k8 - k8_pre} K8 "
+             f"launches for {len(prefill_ms)} prefills and {len(step_ms)} "
+             f"decode steps")
+    seconds = out["seconds"]
+    t_trace = time.perf_counter()
+    res, busy, k5_s, k8_s = profiled(lambda: serve.run(args, cfg, engine),
+                                     "flash_attention_kernel",
+                                     "rmsnorm_kernel")
+    trace_s = time.perf_counter() - t_trace
+    traced = busy > 0.0
+    tokens = sum(len(r.generated) for r in reqs)
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    emit({"phase": "serve_at_size", "arch": cfg.name,
+          "layers": cfg.num_layers, "dtype": cfg.dtype,
+          "params": sum(p.numel() for p in engine.params.parameters()),
+          "policy": args.policy, "slots": args.slots,
+          "max_seq": args.max_seq, "requests": args.requests,
+          "prompt_tokens": prompt_tokens, "generated_tokens": tokens,
+          "seconds": seconds, "generated_tokens_per_s": tokens / seconds,
+          "median_prefill_ms": float(np.median(prefill_ms)),
+          "max_prefill_ms": float(np.max(prefill_ms)),
+          "median_decode_step_ms": float(np.median(step_ms)),
+          "decode_steps": len(step_ms),
+          "k5_launches": k5, "k8_launches": k8,
+          "k8_launches_prefill": k8_pre,
+          "k8_launches_decode": k8 - k8_pre,
+          "late_handoff_rate": s["late_handoff_rate"],
+          "avg_standby": s["avg_standby"],
+          "window_trace_tail": out["stats"].window_trace[-8:],
+          "peak_bytes": peak, "build_seconds": build_s,
+          "traced_seconds": res["seconds"],
+          "trace_and_read_seconds": trace_s,
+          "device_busy_seconds": busy if traced else None,
+          "k5_device_seconds": k5_s if traced else None,
+          "k8_device_seconds": k8_s if traced else None,
+          "device_idle_share": 1.0 - busy / seconds if traced else None,
+          "phase_seconds": time.perf_counter() - t0})
+    return {"k5": k5, "k8_prefill": k8_pre, "k8_decode": k8 - k8_pre}
+
+
+def lm_entries(serve_launches, flash_err, rms_err):
+    """K5 at one prefill layer of llama3.2-1b (Sq = Sk = 1024, B*H = 32,
+    B*KV = 8, hd 64, bf16, causal) and K8 at 1024 x 2048 (prefill) and
+    4 x 2048 (a decode step of four slots), bf16: device ms, with-host ms,
+    plain ms, the library call's ms, the bound."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    BH, BKV, S, hd = 32, 8, 1024, 64
+    bf = torch.bfloat16
+    q = torch.randn((BH, S, hd), generator=gen, device=DEV).to(bf)
+    k, v = (torch.randn((BKV, S, hd), generator=gen, device=DEV).to(bf)
+            for _ in range(2))
+    kern = lambda: LMA(q, k, v, causal=True)
+    plain = lambda: ref.flash_attention_ref(q, k, v, causal=True)
+    q4, k4, v4 = q[None], k[None], v[None]
+    library = lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True)
+    got, want = kern(), plain()
+    err = float((got.float() - want.float()).abs().max())
+    over = flash_excess(got, want)
+    if not torch.isfinite(got).all() or not over <= 1.0:
+        fail(f"flash_attention at the prefill layer: max|d| {err}, {over} "
+             f"x its limit")
+    lib_err = float((library()[0].float() - want.float()).abs().max())
+    ops = 4 * BH * hd * (S * (S + 1) // 2)     # QK^T and PV, causal pairs
+    n_bytes = nbytes((q, k, v)) + q.numel() * q.element_size()
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
+    src = "src/repro_torch/kernels/csrc/"
+    out = [{"name": "flash_attention", "route": "cuda",
+            "source": src + "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:140",
+            "launches": serve_launches["k5"],
+            "max_abs_err": max(flash_err, err),
+            "ms": median_ms(kern, 20, hide_host=True),
+            "with_host_ms": median_ms(kern, 20),
+            "plain_ms": median_ms(plain, 5),
+            "library_ms": median_ms(library, 20, hide_host=True),
+            "library_max_abs_err": lib_err,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "shape": [BH, BKV, S, S, hd], "dtype": "bfloat16",
+            "causal": True}]
+    for rows, launches, tag in ((1024, serve_launches["k8_prefill"],
+                                 "prefill"),
+                                (4, serve_launches["k8_decode"], "decode")):
+        D = 2048
+        x = torch.randn((rows, D), generator=gen, device=DEV).to(bf)
+        w = (torch.randn((D,), generator=gen, device=DEV) * 0.1).to(bf)
+        w1 = (1.0 + w.float()).to(bf)
+        kern = lambda: LMN(x, w)
+        plain = lambda: ref.rmsnorm_ref(x, w)
+        library = lambda: F.rms_norm(x, (D,), weight=w1, eps=1e-6)
+        got, want = kern(), plain()
+        d = (got.float() - want.float()).abs()
+        err = float(d.max())
+        if not float((d / bf16_ulp(want)).max()) <= 1.0:
+            fail(f"rmsnorm at {rows} x {D}: over one bf16 ulp")
+        n_bytes = 2 * nbytes((x,)) + nbytes((w,))
+        out.append({"name": "rmsnorm" if tag == "prefill"
+                    else "rmsnorm_decode",
+                    "route": "cuda", "source": src + "rmsnorm.cu",
+                    "replaces": "src/repro/kernels/rmsnorm.py:44",
+                    "launches": launches,
+                    "max_abs_err": max(rms_err, err),
+                    "ms": median_ms(kern, 20, hide_host=True),
+                    "with_host_ms": median_ms(kern, 20),
+                    "plain_ms": median_ms(plain, 5),
+                    "library_ms": median_ms(library, 20, hide_host=True),
+                    **roofline(n_bytes, 4 * rows * D),
+                    "shape": [rows, D], "dtype": "bfloat16",
+                    "path": f"serve_at_size {tag}"})
+    return out
+
+
+#: Fig. 3's depth (and the scan rollout's horizon, which follows it): 18
+#: critical sections per config, 7437 planned steps, early exit at 7072.
+#: The eager plain version takes most of the script's time (270-335 s at
+#: 25 CS); at 16 or fewer the planned horizon leaves a config short.
+FIG3_TARGET_CS = 18
 AT_SIZE_TARGET_CS = 50
 AT_SIZE_SCENARIOS = 6667        # x 15 variants = 100 005 configs
 #: The arrival diagram: 834 scenarios x (2 arrival rows x 4 loads = 8
@@ -1034,17 +1473,29 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    build = K.build_library()
+    # both libraries at once: one nvcc per source of each
+    sim_build, lm_build = KB.build_libraries([K.LIBRARY, lm_lib.LIBRARY])
     # one "Compiling entry function" line names each instantiation
-    # (lock_sim_block_kernel<NS, OPEN>), its registers and spills follow
-    ptxas = [ln.strip() for ln in build.log.splitlines()
-             if "entry function" in ln or "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": build.seconds, "cached": build.cached,
-          "library": os.path.relpath(build.path, HERE), "ptxas": ptxas,
+    # (lock_sim_block_kernel<NS, OPEN>, flash_attention_kernel<T, NJ>,
+    # rmsnorm_kernel<T, TW, VEC>), its registers and spills follow
+    ptxas = lambda b: [ln.strip() for ln in b.log.splitlines()
+                       if "entry function" in ln or "registers" in ln
+                       or "spill" in ln]
+    emit({"phase": "build",
+          "seconds": max(sim_build.seconds, lm_build.seconds),
+          "cached": sim_build.cached and lm_build.cached,
+          "library": os.path.relpath(sim_build.path, HERE),
+          "ptxas": ptxas(sim_build),
+          "lm_library": os.path.relpath(lm_build.path, HERE),
+          "lm_ptxas": ptxas(lm_build),
           # the pair whose device math libraries must agree for phase 3
-          "nvcc": K.nvcc_release(), "torch": torch.__version__,
+          "nvcc": KB.nvcc_release(), "torch": torch.__version__,
           "torch_cuda": torch.version.cuda})
 
+    flash_err = phase_flash_attention_vs_plain()
+    rms_err = phase_rmsnorm_vs_plain()
+    phase_lm_vs_plain()
+    serve_launches = phase_serve_at_size()
     max_abs_err = phase_kernel_vs_plain()
     open_abs_err = phase_open_kernel_vs_plain()
     step_abs_err = phase_step_kernels_vs_plain()
@@ -1058,7 +1509,8 @@ def main():
                               max_abs_err, step_abs_err)
                + open_entries(arrs, ares, open_launches, scan_launches,
                               open_abs_err, step_abs_err)
-               + [oracle_entry(oracle_args)])
+               + [oracle_entry(oracle_args)]
+               + lm_entries(serve_launches, flash_err, rms_err))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True,

@@ -1,2 +1,3 @@
-"""Configuration catalogs of the PyTorch port (:mod:`.catalog`: the
+"""Configuration of the PyTorch port: the model schema (:mod:`.base`) and
+the catalogs (:mod:`.catalog`: the registered architectures and the
 lock-simulation sweep specs)."""

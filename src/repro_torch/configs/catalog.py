@@ -6,17 +6,219 @@ The port's own copy of the lock part of ``repro/configs/catalog.py``: each
 spec is a list of :class:`repro_torch.core.policy.SimConfig` rows for one
 :func:`repro_torch.core.xdes.simulate_batch` call.  Row order and the
 :func:`sample_scenarios` draw order are part of the contract (seeds are
-stable across sweeps and equal to the reference's).  The model catalog of
-the reference file is not ported yet.
+stable across sweeps and equal to the reference's).
+
+Beside them, the model catalog of the reference file: the ten registered
+architectures (exact configs from public literature / HF configs, full
+size) and :func:`tiny`, the reduced smoke-test variant of the same family.
+Only the dense attention stacks run in the port so far
+(:mod:`repro_torch.models`).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.core.policy import (ARRIVAL_IDS, DEFAULT_ALPHA,
                                      DEFAULT_SPIN_BUDGET, ORACLE_IDS,
                                      POLICY_IDS, POLICY_ROW, QUEUE_MAX,
                                      WORKLOAD_IDS, SimConfig)
 
+from .base import (AttentionConfig, LayerSpec, MambaConfig, ModelConfig,
+                   MoEConfig, RWKV6Config, register)
+
+
+# --------------------------------------------------------------------------
+# Dense transformers
+# --------------------------------------------------------------------------
+@register("gemma3-4b")
+def gemma3_4b() -> ModelConfig:
+    """34L d2560 8H kv4 hd256 dff10240 v262144; 5 local(1024):1 global,
+    dual rope theta (10k local / 1M global), qk-norm, tied+scaled embed."""
+    return ModelConfig(
+        name="gemma3-4b", family="dense",
+        num_layers=34, d_model=2560, d_ff=10240, vocab_size=262_144,
+        attention=AttentionConfig(num_heads=8, num_kv_heads=4, head_dim=256,
+                                  qk_norm=True, rope_theta=1_000_000.0),
+        window_pattern=(1024, 1024, 1024, 1024, 1024, 0),
+        rope_theta_pattern=(10_000.0,) * 5 + (1_000_000.0,),
+        pattern=(LayerSpec("attention", "dense"),),
+        embed_scale=True, act="gelu", logit_chunk=512,
+    )
+
+
+@register("llama3.2-1b")
+def llama32_1b() -> ModelConfig:
+    return ModelConfig(
+        name="llama3.2-1b", family="dense",
+        num_layers=16, d_model=2048, d_ff=8192, vocab_size=128_256,
+        attention=AttentionConfig(num_heads=32, num_kv_heads=8, head_dim=64,
+                                  rope_theta=500_000.0),
+        pattern=(LayerSpec("attention", "dense"),),
+        tie_embeddings=True, act="silu",
+    )
+
+
+@register("qwen2.5-14b")
+def qwen25_14b() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2.5-14b", family="dense",
+        num_layers=48, d_model=5120, d_ff=13824, vocab_size=152_064,
+        attention=AttentionConfig(num_heads=40, num_kv_heads=8, head_dim=128,
+                                  qkv_bias=True, rope_theta=1_000_000.0),
+        pattern=(LayerSpec("attention", "dense"),),
+        tie_embeddings=False, act="silu",
+    )
+
+
+@register("stablelm-3b")
+def stablelm_3b() -> ModelConfig:
+    return ModelConfig(
+        name="stablelm-3b", family="dense",
+        num_layers=32, d_model=2560, d_ff=6912, vocab_size=50_304,
+        attention=AttentionConfig(num_heads=32, num_kv_heads=32, head_dim=80,
+                                  rope_theta=10_000.0),
+        pattern=(LayerSpec("attention", "dense"),),
+        tie_embeddings=False, act="silu",
+    )
+
+
+# --------------------------------------------------------------------------
+# MoE
+# --------------------------------------------------------------------------
+@register("granite-moe-1b-a400m")
+def granite_moe() -> ModelConfig:
+    return ModelConfig(
+        name="granite-moe-1b-a400m", family="moe",
+        num_layers=24, d_model=1024, d_ff=512, vocab_size=49_155,
+        attention=AttentionConfig(num_heads=16, num_kv_heads=8, head_dim=64,
+                                  rope_theta=10_000.0),
+        moe=MoEConfig(num_experts=32, top_k=8, d_ff=512),
+        pattern=(LayerSpec("attention", "moe"),),
+        tie_embeddings=True, act="silu",
+    )
+
+
+@register("qwen3-moe-235b-a22b")
+def qwen3_moe() -> ModelConfig:
+    return ModelConfig(
+        name="qwen3-moe-235b-a22b", family="moe",
+        num_layers=94, d_model=4096, d_ff=1536, vocab_size=151_936,
+        attention=AttentionConfig(num_heads=64, num_kv_heads=4, head_dim=128,
+                                  qk_norm=True, rope_theta=1_000_000.0),
+        moe=MoEConfig(num_experts=128, top_k=8, d_ff=1536),
+        pattern=(LayerSpec("attention", "moe"),),
+        tie_embeddings=False, act="silu",
+    )
+
+
+# --------------------------------------------------------------------------
+# Hybrid (jamba): period of 8 layers — attention at position 4, mamba
+# elsewhere (1:7); MoE every other layer (odd positions, top-2 of 16).
+# No positional encoding (jamba relies on mamba for position).
+# --------------------------------------------------------------------------
+@register("jamba-1.5-large-398b")
+def jamba() -> ModelConfig:
+    pattern = tuple(
+        LayerSpec("attention" if j == 4 else "mamba",
+                  "moe" if j % 2 == 1 else "dense")
+        for j in range(8))
+    return ModelConfig(
+        name="jamba-1.5-large-398b", family="hybrid",
+        num_layers=72, d_model=8192, d_ff=24576, vocab_size=65_536,
+        attention=AttentionConfig(num_heads=64, num_kv_heads=8, head_dim=128,
+                                  use_rope=False),
+        mamba=MambaConfig(d_state=16, d_conv=4, expand=2, dt_rank=256),
+        moe=MoEConfig(num_experts=16, top_k=2, d_ff=24576),
+        pattern=pattern,
+        tie_embeddings=False, act="silu",
+    )
+
+
+# --------------------------------------------------------------------------
+# VLM (chameleon): early-fusion — VQ image tokens share the text vocab, so
+# the backbone is a dense decoder over mixed token streams (frontend = ids).
+# --------------------------------------------------------------------------
+@register("chameleon-34b")
+def chameleon() -> ModelConfig:
+    return ModelConfig(
+        name="chameleon-34b", family="vlm",
+        num_layers=48, d_model=8192, d_ff=22016, vocab_size=65_536,
+        attention=AttentionConfig(num_heads=64, num_kv_heads=8, head_dim=128,
+                                  qk_norm=True, rope_theta=10_000.0),
+        pattern=(LayerSpec("attention", "dense"),),
+        tie_embeddings=False, act="silu", input_kind="mixed",
+    )
+
+
+# --------------------------------------------------------------------------
+# SSM (rwkv6 "Finch"): attention-free, data-dependent decay
+# --------------------------------------------------------------------------
+@register("rwkv6-1.6b")
+def rwkv6_16b() -> ModelConfig:
+    return ModelConfig(
+        name="rwkv6-1.6b", family="ssm",
+        num_layers=24, d_model=2048, d_ff=7168, vocab_size=65_536,
+        rwkv6=RWKV6Config(head_dim=64),
+        pattern=(LayerSpec("rwkv6", "rwkv_ffn"),),
+        tie_embeddings=False, act="relu_sq",
+    )
+
+
+# --------------------------------------------------------------------------
+# Audio (whisper-large-v3): enc-dec backbone; conv/mel frontend stubbed
+# (input_specs feeds (B, 1500, 1280) frame embeddings).
+# --------------------------------------------------------------------------
+@register("whisper-large-v3")
+def whisper() -> ModelConfig:
+    return ModelConfig(
+        name="whisper-large-v3", family="audio",
+        num_layers=32, d_model=1280, d_ff=5120, vocab_size=51_866,
+        attention=AttentionConfig(num_heads=20, num_kv_heads=20, head_dim=64,
+                                  use_rope=False, out_bias=True),
+        pattern=(LayerSpec("attention", "dense"),),
+        encoder_layers=32, encoder_seq=1500, is_encoder_decoder=True,
+        tie_embeddings=True, act="gelu", input_kind="frames",
+    )
+
+
+# --------------------------------------------------------------------------
+# Reduced smoke-test variants
+# --------------------------------------------------------------------------
+def tiny(cfg: ModelConfig) -> ModelConfig:
+    """Same family/pattern, laptop-sized: used by per-arch smoke tests."""
+    kw: dict = dict(
+        name=f"tiny-{cfg.name}",
+        num_layers=2 * cfg.layers_per_period,
+        d_model=64, d_ff=128, vocab_size=256, logit_chunk=0,
+        remat="none",
+    )
+    if cfg.attention is not None:
+        kw["attention"] = dataclasses.replace(
+            cfg.attention, num_heads=4,
+            num_kv_heads=min(cfg.attention.num_kv_heads, 2)
+            if cfg.attention.num_kv_heads < cfg.attention.num_heads else 4,
+            head_dim=16)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=4, top_k=2,
+                                        d_ff=32)
+    if cfg.mamba is not None:
+        kw["mamba"] = dataclasses.replace(cfg.mamba, d_state=4, dt_rank=8)
+    if cfg.rwkv6 is not None:
+        kw["rwkv6"] = dataclasses.replace(cfg.rwkv6, head_dim=16, lora_w=8,
+                                          lora_mix=4)
+    if cfg.window_pattern is not None:
+        kw["window_pattern"] = tuple(min(w, 8) if w else 0
+                                     for w in cfg.window_pattern)
+    if cfg.is_encoder_decoder:
+        kw["encoder_layers"] = 2
+        kw["encoder_seq"] = 16
+    return dataclasses.replace(cfg, **kw)
+
+
+# --------------------------------------------------------------------------
+# Lock-simulation sweep specs
+# --------------------------------------------------------------------------
 LOCK_SHORT = (0.0, 3.7e-6)        # paper §4: uniform [0, 3.7) µs
 LOCK_LONG = (0.0, 366e-6)         # uniform [0, 366) µs
 LOCK_WAKE = 8e-6                  # order of a futex wake

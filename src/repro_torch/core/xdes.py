@@ -38,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import lock_sim as K
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import NO_TICKET
@@ -67,17 +68,6 @@ _SHARD_LATER = ("shard=True is not ported yet: the multi-GPU config-axis "
 # --------------------------------------------------------------------------
 # Carrying columns and state across (numpy <-> tensors)
 # --------------------------------------------------------------------------
-def resolve_device(device) -> torch.device:
-    """``None`` means the card.  A CUDA device without CUDA raises — no
-    entry point quietly continues on the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device and none is available; "
-            "pass device='cpu' to run the plain PyTorch versions")
-    return device
-
-
 def _as_i32_bits(a: np.ndarray) -> np.ndarray:
     """A writable contiguous copy, uint32 values as int32 bit patterns
     (other dtypes untouched)."""

@@ -26,31 +26,25 @@ move, not by operations (the notes at the top of each source; ``PERF.md``).
 
 The wrappers take the plain version **only** for CPU tensors.  For CUDA
 tensors they launch the kernel or raise; there is no fallback.  The
-library is built at first use by ``nvcc`` from the sources under ``csrc/``
-(one compiler process per source, all at once) into a shared object with a
-plain C interface and loaded with ``ctypes``; nothing is compiled or loaded
-when this module is imported.
+library (:data:`LIBRARY`) is built at first use by ``nvcc`` from the
+sources under ``csrc/`` (:mod:`repro_torch.kernels.build`: one compiler
+process per source, all at once) into a shared object with a plain C
+interface and loaded with ``ctypes``; nothing is compiled or loaded when
+this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 
 from repro_torch.core import policy as P
 
-from . import ref
+from . import build, ref
 
-CSRC = Path(__file__).resolve().parent / "csrc"
+CSRC = build.CSRC
 KERNEL_SOURCES = ("lock_sim_block.cu", "lock_sim_step.cu",
                   "lock_transitions_step.cu", "oracle_step.cu")
 KERNEL_HEADERS = ("lock_sim_consts.cuh", "lock_sim_stages.cuh")
@@ -114,110 +108,29 @@ _OPEN_DTYPES = (torch.float32, torch.float32, torch.int32) \
 # --------------------------------------------------------------------------
 # Build and load
 # --------------------------------------------------------------------------
-@dataclass(frozen=True)
-class BuildResult:
-    path: Path            # the shared library
-    seconds: float        # 0.0 when an up-to-date library was found
-    cached: bool
-    log: str              # nvcc / ptxas -v output (registers, spills)
-
-
-#: Where the library is built: ``build/repro_torch`` at the root of the
-#: checkout (``build/`` is git-ignored).
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-
-
-def _find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the lock simulator's kernels are "
-                       "built from csrc/ at first use and need the CUDA "
-                       "toolkit")
-
-
-def nvcc_release() -> str:
-    """The ``release X.Y, VX.Y.Z`` part of ``nvcc --version``."""
-    out = subprocess.run([_find_nvcc(), "--version"], capture_output=True,
-                         text=True, check=True).stdout
-    return next((ln.split("release", 1)[1].strip()
-                 for ln in out.splitlines() if "release" in ln), "unknown")
-
-
-def build_library() -> BuildResult:
-    """Compile ``csrc/*.cu`` for sm_90a, one ``nvcc`` per source, all at
-    once, and link them into one shared library.  The file name carries a
-    hash of sources and flags, so a stale build is never picked up; an
-    existing up-to-date library is returned as is."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + ("-shared",)).encode())
-    for name in KERNEL_SOURCES + KERNEL_HEADERS:
-        h.update((CSRC / name).read_bytes())
-    lib = BUILD_DIR / f"liblock_sim_{h.hexdigest()[:16]}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists():
-        return BuildResult(lib, 0.0, True,
-                           log.read_text() if log.exists() else "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, tag = _find_nvcc(), f"{lib.stem}.tmp{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in KERNEL_SOURCES]
-    t0 = time.perf_counter()
-    jobs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC),
-                              "-o", str(obj), str(CSRC / src)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                             text=True)
-            for src, obj in zip(KERNEL_SOURCES, objs)]
-    texts = [job.communicate()[0] for job in jobs]
-    tmp = BUILD_DIR / f"{tag}.so"
-    failed = [(src, job.returncode, text) for src, job, text in
-              zip(KERNEL_SOURCES, jobs, texts) if job.returncode != 0]
-    if not failed:
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                               *map(str, objs)], capture_output=True,
-                              text=True)
-        texts.append(link.stdout + link.stderr)
-        if link.returncode != 0:
-            failed = [("link", link.returncode, texts[-1])]
-    seconds = time.perf_counter() - t0
-    for obj in objs:
-        obj.unlink(missing_ok=True)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(
-            f"{src} ({rc}):\n{text}" for src, rc, text in failed))
-    text = "".join(texts)
-    log.write_text(text)
-    os.replace(tmp, lib)
-    return BuildResult(lib, seconds, False, text)
+#: The simulator's kernel library (``build/repro_torch/liblock_sim_<hash>.so``).
+LIBRARY = build.Library("lock_sim", KERNEL_SOURCES, KERNEL_HEADERS,
+                        NVCC_FLAGS)
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    """Build (if needed) and load the kernel library; argtypes set so
-    ctypes passes pointers at full width."""
-    lib = ctypes.CDLL(str(build_library().path))
+    """Build (if needed) and load the kernel library."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, argtypes in (
-            ("lock_sim_block", [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32]),
-            ("lock_sim_step", [ptr, i32, i32]),
-            ("lock_transitions_step", [ptr, ptr, ptr, ptr, i32,
-                                       ctypes.c_float, ptr, i32, i32, i32,
-                                       i32, i32]),
-            ("oracle_step", [ptr, i32])):
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = argtypes + [ptr]        # the stream comes last
-        fn.restype = ctypes.c_int
-    return lib
+    return build.load(LIBRARY, {
+        "lock_sim_block_launch": [ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                  i32],
+        "lock_sim_step_launch": [ptr, i32, i32],
+        "lock_transitions_step_launch": [ptr, ptr, ptr, ptr, i32,
+                                         ctypes.c_float, ptr, i32, i32, i32,
+                                         i32, i32],
+        "oracle_step_launch": [ptr, i32]})
 
 
 def _launch(name, device, *args):
-    """Call the C entry point ``<name>_launch`` with ``args`` on the current
-    stream of ``device``; raise on the CUDA error it returns."""
-    fn = getattr(_library(), f"{name}_launch")
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    """``<name>_launch`` of the library on the current stream of
+    ``device`` (:func:`repro_torch.kernels.build.launch`)."""
+    build.launch(_library(), name, device, *args)
 
 
 # --------------------------------------------------------------------------

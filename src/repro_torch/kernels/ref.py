@@ -1,4 +1,6 @@
-"""Plain PyTorch versions of the lock-simulator kernels.
+"""Plain PyTorch versions of the port's kernels: the lock simulator's and,
+at the end, the language model's (:func:`flash_attention_ref`,
+:func:`rmsnorm_ref`).
 
 These are *definitions*, not fast paths: each function is the eager-tensor
 counterpart of the function of the same name in ``repro/kernels/ref.py``,
@@ -21,6 +23,8 @@ a ``<=`` test and forks the trajectory; the kernel is compiled with
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -669,3 +673,39 @@ def oracle_update_ref(oracle_id, spun, slept, sws, cnt, ewma, k, sws_max):
                                                    sws, cnt, ewma, k))
     delta = torch.minimum(torch.maximum(delta, 1 - sws), sws_max - sws)
     return delta, cnt1, ewma1
+
+
+# --------------------------------------------------------------------------
+# The language model's kernels (repro/kernels/ref.py: flash_attention_ref,
+# rmsnorm_ref): direct dense math in f32, the plain versions of
+# kernels/flash_attention.py and kernels/rmsnorm.py
+# --------------------------------------------------------------------------
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """q: (BH, Sq, hd); k, v: (BKV, Sk, hd), query head b reading kv head
+    ``b // (BH // BKV)``.  Returns (BH, Sq, hd) in q's dtype."""
+    BH, Sq, hd = q.shape
+    BKV, Sk, _ = k.shape
+    g = BH // BKV
+    k = torch.repeat_interleave(k, g, dim=0)
+    v = torch.repeat_interleave(v, g, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(hd)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= qp >= kp
+    if window:
+        m &= (qp - kp) < window
+    s = torch.where(m, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def rmsnorm_ref(x, w, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` over the last dim, in f32,
+    returned in x's dtype."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)

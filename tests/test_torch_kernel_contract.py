@@ -24,7 +24,7 @@ torch.set_num_threads(1)
 from repro_torch.core import policy as P
 from repro_torch.core import xdes
 from repro_torch.kernels import lock_sim as K
-from repro_torch.kernels import ref
+from repro_torch.kernels import lm_lib, ref
 
 ROOT = Path(__file__).resolve().parents[1]
 _DECL = re.compile(
@@ -69,7 +69,10 @@ def test_header_parses():
         assert re.search(r'extern "C" int ' + entry + r"\(", src), name
         assert callable(getattr(K, name.removesuffix(".cu"))), name
     assert set(K.KERNEL_HEADERS) == {p.name for p in K.CSRC.glob("*.cuh")}
-    assert set(K.KERNEL_SOURCES) == {p.name for p in K.CSRC.glob("*.cu")}
+    # every source belongs to one library: the simulator's or the LM's
+    assert set(K.KERNEL_SOURCES).isdisjoint(lm_lib.SOURCES)
+    assert set(K.KERNEL_SOURCES) | set(lm_lib.SOURCES) == \
+        {p.name for p in K.CSRC.glob("*.cu")}
 
 
 @pytest.mark.parametrize("name,value", [
@@ -207,6 +210,13 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.core.stream; "
             "import repro_torch.core.mutlock; "
             "import repro_torch.checkpoint.manager; "
+            "import repro_torch.configs.base; import repro_torch.models; "
+            "import repro_torch.models.convert; import repro_torch.serve; "
+            "import repro_torch.launch.serve; "
+            "import repro_torch.kernels.ops; "
+            "import repro_torch.kernels.flash_attention; "
+            "import repro_torch.kernels.rmsnorm; "
+            "import repro_torch.core.window; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
             "m.startswith('repro.') or m == 'triton']; "
@@ -235,6 +245,22 @@ def test_cuda_device_without_cuda_raises():
             xdes.simulate_batch([cfg], n_steps=8, device=device)
     with pytest.raises(RuntimeError, match="CUDA"):
         xdes.columns_from_numpy({"x": np.zeros(2, np.float32)}, None)
+    # the serving path: parameters, caches, the engine and the CLI
+    from repro_torch import models
+    from repro_torch.configs import base, catalog
+    from repro_torch.launch import serve
+    from repro_torch.serve import DecodeEngine
+    tiny = catalog.tiny(base.get_config("llama3.2-1b"))
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            models.init_params(tiny, device=device)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            models.init_cache(tiny, 1, 8, device=device)
+    params = models.init_params(tiny, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(tiny, params, max_slots=1, max_seq=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--tiny", "--requests", "1"])
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
