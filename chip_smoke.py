@@ -6,8 +6,8 @@
 Needs one CUDA card, ``nvcc`` and nothing else: the two kernel libraries
 (the simulator's: the closed and open variants of ``lock_sim_block`` and
 ``lock_transitions_step``, ``lock_sim_step`` and ``oracle_step``; the
-language model's: ``flash_attention`` and ``rmsnorm``) are built from
-``src/repro_torch/kernels/csrc`` by this run.  Exits non-zero, printing no
+language model's: ``flash_attention``, ``rwkv6_scan`` and ``rmsnorm``) are
+built from ``src/repro_torch/kernels/csrc`` by this run.  Exits non-zero, printing no
 result line, when there is no CUDA device or when any phase fails.
 
 Phases (each but the first prints one JSON line):
@@ -17,8 +17,8 @@ Phases (each but the first prints one JSON line):
 2. ``build``   nvcc build of both libraries at once (one compiler per
    source): seconds, and ptxas's registers / spills for each instantiation
    (the simulator's closed and open variants at 1, 2 and 4 thread slots per
-   lane; ``flash_attention`` per dtype x head-dim class; ``rmsnorm`` per
-   x / w dtype x vector width)
+   lane; ``flash_attention`` per dtype x head-dim class; ``rwkv6_scan`` per
+   head dim; ``rmsnorm`` per dtype)
 LM1. ``flash_attention_vs_plain``  ``flash_attention`` against
    ``flash_attention_ref``, both on the card, over dtype {f32, bf16} x hd
    {16, 64, 80, 128, 256} x Sq = Sk {1, 77, 1024, 2048} x GQA group {1, 4}
@@ -42,6 +42,23 @@ LM4. ``serve_at_size``  full llama3.2-1b (16 layers, bf16, random weights
    idle share from a second, traced pass; every request must finish with
    every token in [0, V), every prefill and every decode step launching
    K8 2 * layers + 1 times and every prefill K5 once per layer.
+LM5. ``rwkv6_scan_vs_plain``  ``rwkv6_scan`` against ``rwkv6_scan_ref``,
+   both on the card, f32, n = 64 over B*H {1, 32, 128} x T {1, 7, 64, 65,
+   1024, 2048} x s0 {none, random} x w {the model's range exp(-exp(-6 +-
+   1)), uniform (0.01, 1)} x chunk {16, 64}, plus n = 16 cases: y and S_T
+   within RWKV6_LIMIT * max(1, max|plain|) each, chunk 16 == chunk 64 bit
+   for bit; bf16 inputs and n = 32 refused.
+LM6. ``rwkv6_lm_vs_plain``  rwkv6-1.6b at full width cut to 2 layers, f32,
+   one seeded set of weights (the time-mix groupnorm drawn from the seed in
+   place of the reference's zeros, so that the scan shows in the logits):
+   a 300-token prefill and 8 decode steps on the card and on the CPU, the
+   card fed the CPU's greedy tokens: logits max|d| <= 1e-3 and the last
+   wkv states within 1e-3 * max(1, max|CPU|), greedy tokens equal wherever
+   the CPU's top-2 margin exceeds 1e-2.
+LM7. ``serve_rwkv6_at_size``  ``serve_at_size`` for the full rwkv6-1.6b
+   (24 layers, bf16, random weights from a seed), the same traffic: every
+   prefill and every decode step launching K6 once per layer and K8
+   2 * layers + 1 times.
 3. ``kernel_vs_plain``  ``lock_sim_block`` against ``lock_sim_block_ref``,
    both on the card, chained from the engine's initial state for 256 steps
    over the closed conformance matrix (every policy id x workload x fault,
@@ -100,13 +117,17 @@ LM4. ``serve_at_size``  full llama3.2-1b (16 layers, bf16, random weights
    one prefill layer of llama3.2-1b and ``rmsnorm`` at a prefill and a
    decode shape, with the PyTorch call that computes the same function
    (``library_ms``: ``scaled_dot_product_attention``, ``rms_norm``) and
-   the launches of ``serve_at_size``.
+   the launches of ``serve_at_size``; ``rwkv6_scan`` at one prefill layer
+   (B*H = 32, T = 1024) and one decode step (B*H = 128, T = 1) of
+   rwkv6-1.6b, with no library call (none computes the WKV recurrence)
+   and the launches of ``serve_rwkv6_at_size``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -137,6 +158,8 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention as LMA  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm as LMN  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import \
+    rwkv6_scan as LMW  # noqa: E402
 
 # full f32 products in the plain versions and the f32 model on the card
 # (PyTorch's defaults, stated): TF32 would keep three digits
@@ -1067,6 +1090,14 @@ LM_VS_PLAIN_STEPS = 8
 SERVE_ARGV = ["--arch", "llama3.2-1b", "--requests", "16", "--slots", "4",
               "--max-seq", "2048", "--max-new", "32", "--prompt-min", "128",
               "--prompt-max", "1025", "--policy", "mutable", "--seed", "0"]
+RWKV6_BHS = (1, 32, 128)
+RWKV6_TS = (1, 7, 64, 65, 1024, 2048)
+RWKV6_CHUNKS = (16, 64)
+#: K6 against its plain version: max|d| of y and of S_T each at most this
+#: times max(1, max|plain|).  The sums of a step run in another order
+#: (four partial sums over i, the bonus apart, FMAs), and the state carries
+#: each step's rounding into the next.
+RWKV6_LIMIT = 1e-5
 
 
 def flash_excess(got, want):
@@ -1213,7 +1244,7 @@ def lm_run(cfg, model, device, prompt, n_steps, forced=None):
     """Prefill ``prompt`` and take ``n_steps`` decode steps, feeding the
     tokens ``forced`` or, without them, the greedy token of the previous
     logits: (the logits of the prefill and of every step, f32 on the host;
-    the tokens fed)."""
+    the tokens fed; the engine's cache after the last step)."""
     from repro_torch import models
     from repro_torch.serve import DecodeEngine, Request
     eng = DecodeEngine(cfg, model, max_slots=1,
@@ -1228,7 +1259,7 @@ def lm_run(cfg, model, device, prompt, n_steps, forced=None):
         logits, eng.cache = models.decode_step(
             cfg, eng.params, eng.cache, torch.tensor([[tok]], device=device))
         out.append(logits[0].float().cpu())
-    return out, fed
+    return out, fed, eng.cache
 
 
 def phase_lm_vs_plain():
@@ -1246,103 +1277,128 @@ def phase_lm_vs_plain():
     cpu_model = models.init_params(cfg, torch.Generator().manual_seed(0),
                                    "cpu")
     gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    out, _, _ = compare_lm("lm_vs_plain", cfg, cpu_model, gpu_model)
+    if out["k5_launches"] != cfg.num_layers or out["k6_launches"] != 0:
+        fail(f"lm_vs_plain: {out} launches on the card")
+    emit({"phase": "lm_vs_plain", "arch": "llama3.2-1b", **out,
+          "seconds": time.perf_counter() - t0})
+
+
+def compare_lm(phase, cfg, cpu_model, gpu_model):
+    """A ``LM_VS_PLAIN_PROMPT``-token prefill and ``LM_VS_PLAIN_STEPS``
+    decode steps of ``cfg`` on the CPU and on the card, the card fed the
+    CPU's greedy tokens: logits within 1e-3, greedy tokens equal where the
+    CPU's top-2 margin exceeds 1e-2, K8 launched 2 * layers + 1 times a
+    forward.  Returns what it read and the last caches of the CPU and the
+    card."""
     rng = np.random.default_rng(0)
     prompt = [int(t) for t in rng.integers(2, cfg.vocab_size - 1,
                                            LM_VS_PLAIN_PROMPT)]
-    cpu, forced = lm_run(cfg, cpu_model, "cpu", prompt, LM_VS_PLAIN_STEPS)
-    k5, k8 = LMA.launches, LMN.launches
-    gpu, _ = lm_run(cfg, gpu_model, DEV, prompt, LM_VS_PLAIN_STEPS, forced)
-    k5, k8 = LMA.launches - k5, LMN.launches - k8
-    if k5 != cfg.num_layers or k8 != (2 * cfg.num_layers + 1) * (
-            LM_VS_PLAIN_STEPS + 1):
-        fail(f"lm_vs_plain: {k5} K5 / {k8} K8 launches on the card")
+    cpu, forced, cpu_cache = lm_run(cfg, cpu_model, "cpu", prompt,
+                                    LM_VS_PLAIN_STEPS)
+    k5, k6, k8 = LMA.launches, LMW.launches, LMN.launches
+    gpu, _, gpu_cache = lm_run(cfg, gpu_model, DEV, prompt,
+                               LM_VS_PLAIN_STEPS, forced)
+    k5, k6, k8 = LMA.launches - k5, LMW.launches - k6, LMN.launches - k8
+    if k8 != (2 * cfg.num_layers + 1) * (LM_VS_PLAIN_STEPS + 1):
+        fail(f"{phase}: {k8} K8 launches on the card")
     worst, clear, agree = 0.0, 0, 0
     for i, (c, g) in enumerate(zip(cpu, gpu)):
         if not torch.isfinite(g).all():
-            fail(f"lm_vs_plain: non-finite logits at step {i}")
+            fail(f"{phase}: non-finite logits at step {i}")
         worst = max(worst, float((c - g).abs().max()))
         top2 = torch.topk(c, 2).values
         if float(top2[0] - top2[1]) > 1e-2:
             clear += 1
             if int(g.argmax()) != int(c.argmax()):
-                fail(f"lm_vs_plain: greedy token differs at step {i} "
+                fail(f"{phase}: greedy token differs at step {i} "
                      f"(CPU margin {float(top2[0] - top2[1])})")
             agree += 1
     if not worst <= 1e-3:
-        fail(f"lm_vs_plain: logits max|d| {worst} over 1e-3")
-    emit({"phase": "lm_vs_plain", "arch": "llama3.2-1b", "layers": 2,
-          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "dtype": "float32",
-          "prompt": LM_VS_PLAIN_PROMPT, "decode_steps": LM_VS_PLAIN_STEPS,
-          "logits_max_abs_err": worst, "limit": 1e-3,
-          "steps_compared": len(cpu), "steps_with_clear_margin": clear,
-          "greedy_equal": agree, "k5_launches": k5, "k8_launches": k8,
-          "seconds": time.perf_counter() - t0})
+        fail(f"{phase}: logits max|d| {worst} over 1e-3")
+    return {"layers": cfg.num_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, "dtype": "float32",
+            "prompt": LM_VS_PLAIN_PROMPT, "decode_steps": LM_VS_PLAIN_STEPS,
+            "logits_max_abs_err": worst, "limit": 1e-3,
+            "steps_compared": len(cpu), "steps_with_clear_margin": clear,
+            "greedy_equal": agree, "k5_launches": k5, "k6_launches": k6,
+            "k8_launches": k8}, cpu_cache, gpu_cache
 
 
-def phase_serve_at_size():
-    """Full llama3.2-1b (16 layers, bf16, random weights from a seed)
-    through ``repro_torch.launch.serve``'s code path: the mutable policy,
-    4 slots, max_seq 2048, 16 requests of 128-1024 prompt tokens, 32 new
-    tokens each."""
+def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b"):
+    """Full ``arch`` (bf16, random weights from a seed) through
+    ``repro_torch.launch.serve``'s code path: the mutable policy, 4 slots,
+    max_seq 2048, 16 requests of 128-1024 prompt tokens, 32 new tokens
+    each.  Each prefill must launch K5 once per attention layer, K6 once
+    per rwkv6 layer and K8 2 * layers + 1 times, and each decode step K6
+    and K8 alike."""
     from repro_torch.launch import serve
-    args = serve.parse_args(SERVE_ARGV)
+    argv = ["--arch", arch] + SERVE_ARGV[2:]
+    args = serve.parse_args(argv)
     t0 = time.perf_counter()
     cfg, engine = serve.build(args)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    warm = serve.parse_args(SERVE_ARGV[:2] + ["--requests", "2", "--slots",
-                                              "4", "--max-new", "2",
-                                              "--seed", "1"])
+    warm = serve.parse_args(argv[:2] + ["--requests", "2", "--slots", "4",
+                                        "--max-new", "2", "--seed", "1"])
     serve.run(warm, cfg, engine)               # cuBLAS handles, first calls
-    k8_prefill = [0]
+    at_prefill = {"k6": 0, "k8": 0}
     real_prefill = engine.prefill
 
     def prefill(prompt):
-        n = LMN.launches
+        n6, n8 = LMW.launches, LMN.launches
         res = real_prefill(prompt)
-        k8_prefill[0] += LMN.launches - n
+        at_prefill["k6"] += LMW.launches - n6
+        at_prefill["k8"] += LMN.launches - n8
         return res
 
     engine.prefill = prefill
     engine.prefill_seconds.clear()
     engine.step_seconds.clear()
+    gc.collect()                # what earlier phases left: not this peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    LMA.launches = LMN.launches = 0            # the main path, counted
+    LMA.launches = LMW.launches = LMN.launches = 0   # the main path, counted
     try:
         out = serve.run(args, cfg, engine)
         torch.cuda.synchronize()
     finally:
-        engine.prefill = real_prefill
-    k5, k8, k8_pre = LMA.launches, LMN.launches, k8_prefill[0]
+        del engine.prefill      # the class's method again, and no cycle
+    k5, k6, k8 = LMA.launches, LMW.launches, LMN.launches
+    k6_pre, k8_pre = at_prefill["k6"], at_prefill["k8"]
     peak = torch.cuda.max_memory_allocated()
     reqs, s = out["requests"], out["summary"]
     if s["completed"] != args.requests:
-        fail(f"serve_at_size: {s['completed']} of {args.requests} done")
+        fail(f"{phase}: {s['completed']} of {args.requests} done")
     for r in reqs:
         if len(r.generated) != args.max_new or not all(
                 0 <= t < cfg.vocab_size for t in r.generated):
-            fail(f"serve_at_size: request {r.rid} generated {r.generated}")
+            fail(f"{phase}: request {r.rid} generated {r.generated}")
     prefill_ms = [t * 1e3 for t in engine.prefill_seconds]
     step_ms = [t * 1e3 for t in engine.step_seconds]
+    from repro_torch.models.transformer import layer_spec
+    mixers = [layer_spec(cfg, l).mixer for l in range(cfg.num_layers)]
+    n_attn, n_rwkv = mixers.count("attention"), mixers.count("rwkv6")
     per_forward = 2 * cfg.num_layers + 1
     if (len(prefill_ms) != args.requests
-            or k5 != cfg.num_layers * args.requests
+            or k5 != n_attn * args.requests
+            or k6_pre != n_rwkv * args.requests
+            or k6 - k6_pre != n_rwkv * len(step_ms)
             or k8_pre != per_forward * args.requests
             or k8 - k8_pre != per_forward * len(step_ms)):
-        fail(f"serve_at_size: {k5} K5 / {k8_pre} + {k8 - k8_pre} K8 "
-             f"launches for {len(prefill_ms)} prefills and {len(step_ms)} "
-             f"decode steps")
+        fail(f"{phase}: {k5} K5 / {k6_pre} + {k6 - k6_pre} K6 / {k8_pre} + "
+             f"{k8 - k8_pre} K8 launches for {len(prefill_ms)} prefills "
+             f"and {len(step_ms)} decode steps")
     seconds = out["seconds"]
     t_trace = time.perf_counter()
-    res, busy, k5_s, k8_s = profiled(lambda: serve.run(args, cfg, engine),
-                                     "flash_attention_kernel",
-                                     "rmsnorm_kernel")
+    res, busy, k5_s, k6_s, k8_s = profiled(
+        lambda: serve.run(args, cfg, engine), "flash_attention_kernel",
+        "rwkv6_scan_kernel", "rmsnorm_kernel")
     trace_s = time.perf_counter() - t_trace
     traced = busy > 0.0
     tokens = sum(len(r.generated) for r in reqs)
     prompt_tokens = sum(len(r.prompt) for r in reqs)
-    emit({"phase": "serve_at_size", "arch": cfg.name,
+    emit({"phase": phase, "arch": cfg.name,
           "layers": cfg.num_layers, "dtype": cfg.dtype,
           "params": sum(p.numel() for p in engine.params.parameters()),
           "policy": args.policy, "slots": args.slots,
@@ -1353,8 +1409,9 @@ def phase_serve_at_size():
           "max_prefill_ms": float(np.max(prefill_ms)),
           "median_decode_step_ms": float(np.median(step_ms)),
           "decode_steps": len(step_ms),
-          "k5_launches": k5, "k8_launches": k8,
-          "k8_launches_prefill": k8_pre,
+          "k5_launches": k5, "k6_launches": k6,
+          "k6_launches_prefill": k6_pre, "k6_launches_decode": k6 - k6_pre,
+          "k8_launches": k8, "k8_launches_prefill": k8_pre,
           "k8_launches_decode": k8 - k8_pre,
           "late_handoff_rate": s["late_handoff_rate"],
           "avg_standby": s["avg_standby"],
@@ -1364,10 +1421,172 @@ def phase_serve_at_size():
           "trace_and_read_seconds": trace_s,
           "device_busy_seconds": busy if traced else None,
           "k5_device_seconds": k5_s if traced else None,
+          "k6_device_seconds": k6_s if traced else None,
           "k8_device_seconds": k8_s if traced else None,
           "device_idle_share": 1.0 - busy / seconds if traced else None,
           "phase_seconds": time.perf_counter() - t0})
-    return {"k5": k5, "k8_prefill": k8_pre, "k8_decode": k8 - k8_pre}
+    return {"k5": k5, "k6_prefill": k6_pre, "k6_decode": k6 - k6_pre,
+            "k8_prefill": k8_pre, "k8_decode": k8 - k8_pre}
+
+
+def rwkv6_inputs(gen, BH, T, n, w_range, with_s0):
+    """Seeded f32 operands of K6 on the card.  ``w_range`` "model": the
+    decay of an rwkv6-1.6b layer at init, exp(-exp(-6 + U(-1, 1)));
+    "wide": U(0.01, 1)."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    uni = lambda *shape: torch.rand(shape, generator=gen, device=DEV)
+    r, k, v = rnd(BH, T, n), rnd(BH, T, n), rnd(BH, T, n)
+    if w_range == "model":
+        w = torch.exp(-torch.exp(-6.0 + 2.0 * uni(BH, T, n) - 1.0))
+    else:
+        w = 0.01 + 0.99 * uni(BH, T, n)
+    u = 0.5 * rnd(BH, n)
+    return r, k, v, w, u, rnd(BH, n, n) if with_s0 else None
+
+
+def rwkv6_excess(got, want):
+    """max|got - want| over RWKV6_LIMIT * max(1, max|want|): at most 1
+    where the kernel agrees."""
+    scale = max(1.0, float(want.abs().max()))
+    return float((got - want).abs().max()) / (RWKV6_LIMIT * scale)
+
+
+def phase_rwkv6_scan_vs_plain():
+    """K6 against rwkv6_scan_ref, both on the card."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    cases = [(64, BH, T, s0, wr) for BH in RWKV6_BHS for T in RWKV6_TS
+             for s0 in (False, True) for wr in ("model", "wide")]
+    cases += [(16, 8, T, s0, wr) for T in (1, 7, 130)
+              for s0 in (False, True) for wr in ("model", "wide")]
+    worst = {"y": 0.0, "S_T": 0.0}
+    excess = 0.0
+    n_launch = 0
+    before = LMW.launches
+    for n, BH, T, with_s0, wr in cases:
+        args = rwkv6_inputs(gen, BH, T, n, wr, with_s0)
+        want = ref.rwkv6_scan_ref(*args)
+        outs = [LMW(*args, chunk=c) for c in RWKV6_CHUNKS]
+        n_launch += len(outs)
+        where = f"rwkv6_scan n={n} BH={BH} T={T} s0={with_s0} w={wr}"
+        for (y, sT), c in zip(outs, RWKV6_CHUNKS):
+            if (y.shape != want[0].shape or sT.shape != want[1].shape
+                    or y.dtype != torch.float32 or sT.dtype != torch.float32):
+                fail(f"{where} chunk={c}: {y.shape} {sT.shape} {y.dtype}")
+            for name, g, wv in (("y", y, want[0]), ("S_T", sT, want[1])):
+                over = rwkv6_excess(g, wv)
+                if not torch.isfinite(g).all() or not over <= 1.0:
+                    fail(f"{where} chunk={c}: {name} {over} x its limit")
+                worst[name] = max(worst[name],
+                                  float((g - wv).abs().max()))
+                excess = max(excess, over)
+        if not all(torch.equal(a, b) for a, b in zip(outs[0], outs[1])):
+            fail(f"{where}: chunk {RWKV6_CHUNKS} results differ")
+    torch.cuda.synchronize()
+    refused = []
+    for name, dtype, n in (("bf16", torch.bfloat16, 64),
+                           ("n=32", torch.float32, 32)):
+        r = torch.zeros((4, 8, n), device=DEV, dtype=dtype)
+        u = torch.zeros((4, n), device=DEV, dtype=dtype)
+        try:
+            LMW(r, r, r, r, u)
+        except (TypeError, ValueError) as e:
+            refused.append(f"{name}: {type(e).__name__}")
+    if refused != ["bf16: TypeError", "n=32: ValueError"]:
+        fail(f"rwkv6_scan: bf16 / n=32 not refused as expected ({refused})")
+    if LMW.launches - before != n_launch:
+        fail(f"rwkv6_scan: {LMW.launches - before} launches for {n_launch}")
+    emit({"phase": "rwkv6_scan_vs_plain", "cases": len(cases),
+          "launches": n_launch, "chunks": list(RWKV6_CHUNKS),
+          "max_abs_err": worst, "limit": f"{RWKV6_LIMIT} * max(1, "
+          f"max|plain|)", "max_err_over_limit": excess,
+          "chunks_bit_equal": True, "refused": refused,
+          "seconds": time.perf_counter() - t0})
+    return max(worst.values())
+
+
+def live_time_mix(model, gen):
+    """Draw every rwkv6 layer's groupnorm weight and bias from ``gen`` in
+    place of the reference's zeros, with which the time-mix output, and so
+    the logits, would not depend on the WKV scan."""
+    for layer in model.layers:
+        D = layer.rwkv["ln_w"].shape[0]
+        layer.rwkv["ln_w"].copy_(1.0 + 0.2 * torch.randn(D, generator=gen))
+        layer.rwkv["ln_b"].copy_(0.1 * torch.randn(D, generator=gen))
+
+
+def phase_rwkv6_lm_vs_plain():
+    """rwkv6-1.6b at full width cut to 2 layers, f32, one seeded set of
+    parameters (time-mix made live): the comparison of ``lm_vs_plain``
+    (K6, K8 on the card, plain versions on the CPU), plus the last wkv
+    states."""
+    import copy
+
+    from repro_torch import models
+    from repro_torch.configs import base as CB
+    cfg = CB.get_config("rwkv6-1.6b").replace(
+        num_layers=2, dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    cpu_model = models.init_params(cfg, gen, "cpu")
+    live_time_mix(cpu_model, gen)
+    gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    out, cpu_cache, gpu_cache = compare_lm("rwkv6_lm_vs_plain", cfg,
+                                           cpu_model, gpu_model)
+    per_run = cfg.num_layers * (LM_VS_PLAIN_STEPS + 1)
+    if out["k5_launches"] != 0 or out["k6_launches"] != per_run:
+        fail(f"rwkv6_lm_vs_plain: {out['k6_launches']} K6 launches for "
+             f"{per_run}")
+    wkv = 0.0
+    for c, g in zip(cpu_cache["layers"], gpu_cache["layers"]):
+        want = c["wkv"]
+        scale = max(1.0, float(want.abs().max()))
+        wkv = max(wkv, float((g["wkv"].cpu() - want).abs().max()) / scale)
+    if not wkv <= 1e-3:
+        fail(f"rwkv6_lm_vs_plain: wkv states {wkv} x max(1, max|CPU|)")
+    emit({"phase": "rwkv6_lm_vs_plain", "arch": "rwkv6-1.6b", **out,
+          "wkv_max_err_over_scale": wkv, "wkv_limit": 1e-3,
+          "seconds": time.perf_counter() - t0})
+
+
+def rwkv6_entries(serve_launches, scan_err):
+    """K6 at one prefill layer of rwkv6-1.6b (B*H = 32, T = 1024, n = 64,
+    no initial state) and one decode step of four slots (B*H = 128, T = 1,
+    the cached state), f32: device ms, with-host ms, plain ms, the bound;
+    no PyTorch call computes the recurrence, so no library ms."""
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    out = []
+    for BH, T, with_s0, tag in ((32, 1024, False, "prefill"),
+                                (128, 1, True, "decode")):
+        n = 64
+        args = rwkv6_inputs(gen, BH, T, n, "model", with_s0)
+        kern = lambda: LMW(*args)
+        plain = lambda: ref.rwkv6_scan_ref(*args)
+        (y, sT), want = kern(), plain()
+        over = max(rwkv6_excess(y, want[0]), rwkv6_excess(sT, want[1]))
+        if not over <= 1.0:
+            fail(f"rwkv6_scan at the {tag} shape: {over} x its limit")
+        err = max(float((y - want[0]).abs().max()),
+                  float((sT - want[1]).abs().max()))
+        # r, k, v, w, u (and s0) read once; y and S_T written once; per
+        # row and step n^2 products of r S, n^2 of k v, n^2 FMAs of the
+        # decay (5 n^2), and the bonus r.(u k) and its v (5 n)
+        n_bytes = nbytes(args) + nbytes((y, sT))
+        ops = BH * T * (5 * n * n + 5 * n)
+        out.append({"name": "rwkv6_scan" if tag == "prefill"
+                    else "rwkv6_scan_decode", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                    "replaces": "src/repro/kernels/rwkv6_scan.py:83",
+                    "launches": serve_launches[f"k6_{tag}"],
+                    "max_abs_err": max(scan_err, err),
+                    "ms": median_ms(kern, 20, hide_host=True),
+                    "with_host_ms": median_ms(kern, 20),
+                    "plain_ms": median_ms(plain, 3), "library_ms": None,
+                    **roofline(n_bytes, ops),
+                    "shape": [BH, T, n], "dtype": "float32",
+                    "initial_state": with_s0,
+                    "path": f"serve_rwkv6_at_size {tag}"})
+    return out
 
 
 def lm_entries(serve_launches, flash_err, rms_err):
@@ -1477,7 +1696,8 @@ def main():
     sim_build, lm_build = KB.build_libraries([K.LIBRARY, lm_lib.LIBRARY])
     # one "Compiling entry function" line names each instantiation
     # (lock_sim_block_kernel<NS, OPEN>, flash_attention_kernel<T, NJ>,
-    # rmsnorm_kernel<T, TW, VEC>), its registers and spills follow
+    # rwkv6_scan_kernel<N>, rmsnorm_kernel<T>), its registers and spills
+    # follow
     ptxas = lambda b: [ln.strip() for ln in b.log.splitlines()
                        if "entry function" in ln or "registers" in ln
                        or "spill" in ln]
@@ -1496,6 +1716,9 @@ def main():
     rms_err = phase_rmsnorm_vs_plain()
     phase_lm_vs_plain()
     serve_launches = phase_serve_at_size()
+    scan_err = phase_rwkv6_scan_vs_plain()
+    phase_rwkv6_lm_vs_plain()
+    rwkv6_launches = phase_serve_at_size("serve_rwkv6_at_size", "rwkv6-1.6b")
     max_abs_err = phase_kernel_vs_plain()
     open_abs_err = phase_open_kernel_vs_plain()
     step_abs_err = phase_step_kernels_vs_plain()
@@ -1510,7 +1733,8 @@ def main():
                + open_entries(arrs, ares, open_launches, scan_launches,
                               open_abs_err, step_abs_err)
                + [oracle_entry(oracle_args)]
-               + lm_entries(serve_launches, flash_err, rms_err))
+               + lm_entries(serve_launches, flash_err, rms_err)
+               + rwkv6_entries(rwkv6_launches, scan_err))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True,

@@ -1,4 +1,5 @@
-"""Dispatch wrapper: model-layout attention tensors -> K5's layout.
+"""Dispatch wrappers: model-layout tensors -> the kernels' layouts (K5
+attention, K6 the RWKV6 WKV scan).
 
 The port of ``repro/kernels/ops.py``.  The reference picks Pallas or its
 plain version by backend and an environment variable (``use_pallas()``);
@@ -12,6 +13,7 @@ mapping: :func:`repro_torch.models.layers.rmsnorm` calls K8's wrapper
 from __future__ import annotations
 
 from .flash_attention import flash_attention
+from .rwkv6_scan import rwkv6_scan
 
 
 def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -26,3 +28,23 @@ def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
                         softcap=softcap)
     return o.reshape(B, H, Sq, hd).transpose(1, 2)
 
+
+
+def wkv(r, k, v, w, u, head_dim: int, s0=None):
+    """Model layout r / k / v / w (B, T, D) with H = D // head_dim heads,
+    u (D,), s0 (B, H, n, n) or None -> (y (B, T, D) f32, S_T (B, H, n, n)
+    f32) through K6's layout (B*H, T, n), u broadcast to (B*H, n)."""
+    B, T, D = r.shape
+    n = head_dim
+    H = D // n
+
+    def to_bh(x):
+        return x.reshape(B, T, H, n).transpose(1, 2).reshape(
+            B * H, T, n).contiguous()
+
+    rb, kb, vb, wb = map(to_bh, (r, k, v, w))
+    ub = u.reshape(H, n).expand(B, H, n).reshape(B * H, n).contiguous()
+    s0b = None if s0 is None else s0.reshape(B * H, n, n).contiguous()
+    y, sT = rwkv6_scan(rb, kb, vb, wb, ub, s0b)
+    y = y.reshape(B, H, T, n).transpose(1, 2).reshape(B, T, D)
+    return y, sT.reshape(B, H, n, n)

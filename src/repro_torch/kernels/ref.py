@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels: the lock simulator's and,
 at the end, the language model's (:func:`flash_attention_ref`,
-:func:`rmsnorm_ref`).
+:func:`rwkv6_scan_ref`, :func:`rmsnorm_ref`).
 
 These are *definitions*, not fast paths: each function is the eager-tensor
 counterpart of the function of the same name in ``repro/kernels/ref.py``,
@@ -677,8 +677,9 @@ def oracle_update_ref(oracle_id, spun, slept, sws, cnt, ewma, k, sws_max):
 
 # --------------------------------------------------------------------------
 # The language model's kernels (repro/kernels/ref.py: flash_attention_ref,
-# rmsnorm_ref): direct dense math in f32, the plain versions of
-# kernels/flash_attention.py and kernels/rmsnorm.py
+# rwkv6_scan_ref, rmsnorm_ref): direct dense math in f32, the plain
+# versions of kernels/flash_attention.py, kernels/rwkv6_scan.py and
+# kernels/rmsnorm.py
 # --------------------------------------------------------------------------
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q: (BH, Sq, hd); k, v: (BKV, Sk, hd), query head b reading kv head
@@ -701,6 +702,27 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     s = torch.where(m, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0=None):
+    """Sequential definition of the RWKV6 WKV recurrence, per row b:
+    ``y_t = r_t (S + diag(u) k_t^T v_t)``, ``S <- diag(w_t) S + k_t^T v_t``.
+
+    r, k, v, w: (BH, T, n); u: (BH, n); s0: (BH, n, n) or None (zeros).
+    Returns (y (BH, T, n), S_T (BH, n, n)), both f32."""
+    BH, T, n = r.shape
+    S = (torch.zeros((BH, n, n), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    u = u.float()
+    ys = []
+    for t in range(T):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        ys.append(torch.einsum("bk,bkv->bv", r[:, t], S + u[..., None] * kv))
+        S = w[:, t, :, None] * S + kv
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.zeros((BH, 0, n), dtype=torch.float32, device=r.device))
+    return y, S
 
 
 def rmsnorm_ref(x, w, eps: float = 1e-6):

@@ -1,0 +1,93 @@
+"""RWKV6 WKV scan: the hand-written Hopper kernel K6 and its wrapper.
+
+The port of the Pallas TPU kernel ``repro/kernels/rwkv6_scan.py``: per row
+of B*H, the state S (n, n) carried across the sequence,
+``y_t = r_t S + (r_t . (u * k_t)) v_t`` and ``S <- diag(w_t) S + k_t^T v_t``,
+the exact diagonal recurrence in f32 (``csrc/rwkv6_scan.cu``; plain version
+:func:`repro_torch.kernels.ref.rwkv6_scan_ref`).
+
+Layout: r, k, v, w (BH, T, n); u (BH, n); s0 (BH, n, n) or None;
+:func:`repro_torch.kernels.ops.wkv` maps the model's (B, T, D) tensors to
+it and back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import lm_lib, ref
+
+#: Head dims the kernel is built for: the catalog's (64) and the tiny
+#: configs' (16).
+HEAD_DIMS = (16, 64)
+#: Most time steps the kernel stages in shared memory at once.
+MAX_CHUNK = 128
+
+
+def check_operands(r, k, v, w, u, s0, chunk):
+    """Raise unless the kernel takes the operands: f32 (``TypeError``), one
+    device, r / k / v / w (BH, T, n) alike, u (BH, n), s0 (BH, n, n) or
+    None, n in :data:`HEAD_DIMS`, 1 <= chunk <= :data:`MAX_CHUNK`,
+    contiguous and 16-byte aligned (``ValueError``)."""
+    ops = [("r", r), ("k", k), ("v", v), ("w", w), ("u", u)]
+    if s0 is not None:
+        ops.append(("s0", s0))
+    for name, t in ops:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype}; the kernel takes "
+                            f"float32")
+        if t.device != r.device:
+            raise ValueError(f"{name}: on {t.device}, r is on {r.device}")
+    if r.ndim != 3:
+        raise ValueError(f"r: expected (B*heads, T, n), got "
+                         f"{tuple(r.shape)}")
+    BH, T, n = r.shape
+    for name, t in ops[1:4]:
+        if tuple(t.shape) != tuple(r.shape):
+            raise ValueError(f"{name} {tuple(t.shape)} does not match r "
+                             f"{tuple(r.shape)}")
+    if tuple(u.shape) != (BH, n):
+        raise ValueError(f"u {tuple(u.shape)}: expected {(BH, n)}")
+    if s0 is not None and tuple(s0.shape) != (BH, n, n):
+        raise ValueError(f"s0 {tuple(s0.shape)}: expected {(BH, n, n)}")
+    if n not in HEAD_DIMS:
+        raise ValueError(f"head dim n={n}: the kernel is built for "
+                         f"{HEAD_DIMS}")
+    if BH == 0:
+        raise ValueError("BH=0: no rows")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk={chunk}: the kernel stages 1 to "
+                         f"{MAX_CHUNK} steps at once")
+    for name, t in ops:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: not contiguous or not 16-byte "
+                             f"aligned")
+
+
+def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 64):
+    """r, k, v, w: (BH, T, n), w the decay in (0, 1); u: (BH, n); s0:
+    (BH, n, n) or None.  Returns (y (BH, T, n) f32, S_T (BH, n, n) f32).
+
+    CPU tensors go through the plain version.  Other tensors are checked
+    (:func:`check_operands`) and, on CUDA, launch the kernel on the current
+    stream, adding one to ``rwkv6_scan.launches``; there is no fallback.
+    ``chunk`` is how many steps the kernel stages at once; the result does
+    not depend on it."""
+    if r.device.type == "cpu":
+        return ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    check_operands(r, k, v, w, u, s0, chunk)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan runs on cuda or cpu tensors, not "
+                         f"{r.device}")
+    BH, T, n = r.shape
+    y = torch.empty_like(r)
+    sT = torch.empty((BH, n, n), dtype=torch.float32, device=r.device)
+    lm_lib.launch("rwkv6_scan", r.device, r.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                  None if s0 is None else s0.data_ptr(), y.data_ptr(),
+                  sT.data_ptr(), BH, T, n, int(chunk))
+    rwkv6_scan.launches += 1
+    return y, sT
+
+
+rwkv6_scan.launches = 0

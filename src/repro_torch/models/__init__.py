@@ -1,5 +1,5 @@
 """Model zoo of the PyTorch port: the serving API of ``repro.models`` for
-decoder-only dense stacks.
+decoder-only stacks of attention and rwkv6 layers (dense or rwkv FFNs).
 
     init_params(cfg, generator=None, device=None) -> Transformer (nn.Module)
     prefill(cfg, params, batch)       -> (logits, cache)     [prefill_step]
@@ -9,9 +9,10 @@ decoder-only dense stacks.
 
 ``device=None`` is the card (``RuntimeError`` without one); pass
 ``device="cpu"`` for the plain versions, as the tests do.  ``prefill`` and
-``decode_step`` run where the parameters are.  ``loss_fn`` waits for the
-training slice; configs with other mixers or FFNs raise
-``NotImplementedError``.
+``decode_step`` run where the parameters are.  On the card, prefill
+attention launches K5, every rwkv6 time-mix K6 (prefill and decode) and
+every RMSNorm K8.  ``loss_fn`` waits for the training slice; configs with
+mamba, MoE or encoder-decoder layers raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

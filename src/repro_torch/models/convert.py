@@ -1,13 +1,16 @@
 """Carrying the reference's parameters and decode caches into the port.
 
 The reference keeps its parameters as a pytree whose layer leaves are
-stacked over periods (``stack[j][name]`` of shape ``(num_periods, ...)``
-for pattern position ``j``) and its decode cache as ``{"stack": ({"k",
-"v"} of shape (periods, B, S, KV, hd),), "len": (B,)}``.  The port holds
-one :class:`~repro_torch.models.transformer.Layer` per layer and one
-(B, KV, S, hd) cache entry per layer.  These functions map numpy trees
-(``jax.tree.map(np.asarray, tree)`` on the reference side) to and from the
-port's objects; they import nothing of JAX.
+stacked over periods (``stack[j][part][name]`` of shape ``(num_periods,
+...)`` for pattern position ``j``) and its decode cache likewise
+(``{"stack": (per position: {"k", "v"} of shape (periods, B, S, KV, hd),
+or {"att_shift", "ffn_shift", "wkv"} of shape (periods, B, ...)), "len":
+(B,)}``).  The port holds one
+:class:`~repro_torch.models.transformer.Layer` per layer and one cache
+entry per layer, k / v as (B, KV, S, hd), rwkv6 states as the reference
+has them.  These functions map numpy trees (``jax.tree.map(np.asarray,
+tree)`` on the reference side) to and from the port's objects; they import
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +38,19 @@ def _numpy(t):
         else t.detach().cpu().numpy()
 
 
+#: The parameter groups of a layer, by the reference's names.
+_PARTS = ("attn", "rwkv", "mlp", "rwkvffn")
+#: Cache entries the port keeps as (B, KV, S, hd), the reference as (B, S,
+#: KV, hd); every other entry has the reference's layout.
+_KV = ("k", "v")
+
+
+def _swap_layout(name, t):
+    """A cache entry in the other package's layout (the swap of k / v's
+    axes 1 and 2 is its own inverse)."""
+    return t.transpose(1, 2).contiguous() if name in _KV else t
+
+
 def _layer_index(cfg: ModelConfig, l: int):
     """(pattern position, period) of layer ``l``."""
     P = cfg.layers_per_period
@@ -51,9 +67,9 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
     for l in range(cfg.num_layers):
         j, p = _layer_index(cfg, l)
         st = tree["stack"][j]
-        layers.append((t(st["norm1"][p]), t(st["norm2"][p]),
-                       {k: t(v[p]) for k, v in st["attn"].items()},
-                       {k: t(v[p]) for k, v in st["mlp"].items()}))
+        parts = {name: {k: t(v[p]) for k, v in st[name].items()}
+                 for name in _PARTS if name in st}
+        layers.append((t(st["norm1"][p]), t(st["norm2"][p]), parts))
     return transformer.build(
         cfg, {k: t(v) for k, v in tree["embed"].items()},
         t(tree["final_norm"]), layers)
@@ -66,8 +82,8 @@ def cache_from_numpy(cfg: ModelConfig, tree, device=None):
     for l in range(cfg.num_layers):
         j, p = _layer_index(cfg, l)
         e = tree["stack"][j]
-        layers.append({n: _tensor(e[n][p], device).transpose(1, 2)
-                       .contiguous() for n in ("k", "v")})
+        layers.append({n: _swap_layout(n, _tensor(a[p], device))
+                       for n, a in e.items()})
     return {"layers": layers,
             "len": _tensor(tree["len"], device, torch.int32)}
 
@@ -77,9 +93,8 @@ def cache_to_numpy(cfg: ModelConfig, cache):
     P, n = cfg.layers_per_period, cfg.num_periods
     stack = []
     for j in range(P):
-        e = {}
-        for name in ("k", "v"):
-            e[name] = np.stack([_numpy(cache["layers"][p * P + j][name]
-                                       .transpose(1, 2)) for p in range(n)])
-        stack.append(e)
+        entries = [cache["layers"][p * P + j] for p in range(n)]
+        stack.append({name: np.stack([_numpy(_swap_layout(name, e[name]))
+                                      for e in entries])
+                      for name in entries[0]})
     return {"stack": tuple(stack), "len": _numpy(cache["len"])}

@@ -1,4 +1,5 @@
-"""Decoder-stack assembly: init / prefill / decode for dense decoders.
+"""Decoder-stack assembly: init / prefill / decode for decoder-only stacks
+of attention and rwkv6 layers.
 
 The port of the serving half of ``repro/models/transformer.py``.  The
 reference stacks each pattern position's parameters over periods and runs
@@ -7,13 +8,18 @@ as scan data; here the stack is an ``nn.ModuleList`` of :class:`Layer`
 looped in Python, and each layer carries its window and theta as plain
 numbers (:func:`layer_schedules`).
 
-Only ``LayerSpec("attention", "dense")`` stacks are ported: mamba, rwkv6,
-MoE and enc-dec configs raise ``NotImplementedError`` naming the slice that
-will port them.  The losses wait for the training slice.
+Layers with an ``attention`` or ``rwkv6`` mixer and a ``dense`` or
+``rwkv_ffn`` FFN are ported: mamba, MoE and enc-dec configs raise
+``NotImplementedError`` naming the slice that will port them.  The losses
+wait for the training slice.
 
-Cache: ``{"layers": [{"k", "v"} per layer, each (B, KV, Smax, hd)],
-"len": (B,) int32}`` (:mod:`repro_torch.models.attention`).  Decode
-writes the new token into it in place and returns it.
+Cache: ``{"layers": [one dict per layer], "len": (B,) int32}``.  An
+attention layer's entry is ``{"k", "v"}``, each (B, KV, Smax, hd)
+(:mod:`repro_torch.models.attention`), written in place by decode; an
+rwkv6 layer's is ``{"att_shift" (B, D), "ffn_shift" (B, D), "wkv" (B, H,
+n, n) f32}`` (:mod:`repro_torch.models.rwkv6`), replaced by decode.  As in
+the reference, decode runs the rwkv channel-mix with no shift state (its
+token shift pads with zeros): ``ffn_shift`` is written, never read.
 """
 
 from __future__ import annotations
@@ -21,34 +27,35 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 
 from . import attention as attn
+from . import rwkv6 as rwkv
 from .layers import (dtype_of, embed, init_embed, init_mlp, mlp, rmsnorm,
                      unembed_logits, zeros)
 
+_MIXERS = ("attention", "rwkv6")
+_FFNS = ("dense", "rwkv_ffn")
 _NOT_YET = {
     "mamba": "the mamba mixer lands with kernel K7 mamba_scan in the next "
              "slice of the port (ROADMAP.md S2)",
-    "rwkv6": "the rwkv6 mixer lands with kernel K6 rwkv6_scan in the next "
-             "slice of the port (ROADMAP.md S2)",
-    "moe": "MoE FFNs land in a later slice of the port (ROADMAP.md S2)",
-    "rwkv_ffn": "the rwkv6 channel-mix lands with kernel K6 in the next "
-                "slice of the port (ROADMAP.md S2)",
+    "moe": "MoE FFNs land with kernel K7 and jamba in the next slice of the "
+           "port (ROADMAP.md S2)",
     "encdec": "encoder-decoder stacks land in a later slice of the port "
               "(ROADMAP.md S2)",
 }
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is a
-    dense attention layer of a decoder-only stack."""
+    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is an
+    attention or rwkv6 layer with a dense or rwkv FFN, in a decoder-only
+    stack."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: {_NOT_YET['encdec']}")
     for spec in cfg.pattern:
-        if spec.mixer != "attention":
+        if spec.mixer not in _MIXERS:
             raise NotImplementedError(f"{cfg.name}: {_NOT_YET[spec.mixer]}")
-        if spec.ffn != "dense":
+        if spec.ffn not in _FFNS:
             raise NotImplementedError(f"{cfg.name}: {_NOT_YET[spec.ffn]}")
 
 
@@ -58,16 +65,19 @@ def _frozen(tensors: dict) -> nn.ParameterDict:
 
 
 class Layer(nn.Module):
-    """One pre-norm residual layer: attention mixer + dense FFN, with its
-    window (0 = full) and rope theta."""
+    """One pre-norm residual layer of ``spec``: its norms, its parts (the
+    reference's names: ``attn`` or ``rwkv`` for the mixer, ``mlp`` or
+    ``rwkvffn`` for the FFN, each a dict of tensors), its window (0 =
+    full) and rope theta."""
 
-    def __init__(self, norm1, norm2, attn_params, mlp_params, window: int,
-                 theta: float):
+    def __init__(self, spec: LayerSpec, norm1, norm2, parts: dict,
+                 window: int, theta: float):
         super().__init__()
+        self.mixer, self.ffn = spec.mixer, spec.ffn
         self.norm1 = nn.Parameter(norm1, requires_grad=False)
         self.norm2 = nn.Parameter(norm2, requires_grad=False)
-        self.attn = _frozen(attn_params)
-        self.mlp = _frozen(mlp_params)
+        for name, tensors in parts.items():
+            setattr(self, name, _frozen(tensors))
         self.window = int(window)
         self.theta = float(theta)
 
@@ -111,14 +121,34 @@ def layer_schedules(cfg: ModelConfig):
 # --------------------------------------------------------------------------
 # Init
 # --------------------------------------------------------------------------
+def layer_spec(cfg: ModelConfig, l: int) -> LayerSpec:
+    return cfg.pattern[l % cfg.layers_per_period]
+
+
 def build(cfg: ModelConfig, embed_params, final_norm, layer_params):
     """The module from parameter tensors; ``layer_params`` holds one
-    ``(norm1, norm2, attn, mlp)`` per layer."""
+    ``(norm1, norm2, parts)`` per layer (:class:`Layer`)."""
     check_supported(cfg)
     win, theta = layer_schedules(cfg)
     return Transformer(embed_params, final_norm,
-                       [Layer(*p, w, th) for p, w, th in
-                        zip(layer_params, win, theta)])
+                       [Layer(layer_spec(cfg, l), *p, w, th) for l, (p, w, th)
+                        in enumerate(zip(layer_params, win, theta))])
+
+
+def _init_parts(cfg: ModelConfig, spec: LayerSpec, gen, dtype, device):
+    D = cfg.d_model
+    parts = {}
+    if spec.mixer == "attention":
+        parts["attn"] = attn.init_attention(gen, cfg.attention, D, dtype,
+                                            device)
+    else:
+        parts["rwkv"] = rwkv.init_rwkv6(gen, cfg.rwkv6, D, dtype, device)
+    if spec.ffn == "dense":
+        parts["mlp"] = init_mlp(gen, D, cfg.d_ff, dtype, device)
+    else:
+        parts["rwkvffn"] = rwkv.init_rwkv_ffn(gen, D, cfg.d_ff, dtype,
+                                              device)
+    return parts
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator | None,
@@ -132,9 +162,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
     embed_params = init_embed(gen, cfg.vocab_size, D, dtype, device,
                               cfg.tie_embeddings)
     layers = [(zeros((D,), dtype, device), zeros((D,), dtype, device),
-               attn.init_attention(gen, cfg.attention, D, dtype, device),
-               init_mlp(gen, D, cfg.d_ff, dtype, device))
-              for _ in range(cfg.num_layers)]
+               _init_parts(cfg, layer_spec(cfg, l), gen, dtype, device))
+              for l in range(cfg.num_layers)]
     return build(cfg, embed_params, zeros((D,), dtype, device), layers)
 
 
@@ -149,15 +178,28 @@ def param_count(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------------
 def _apply_layer(cfg: ModelConfig, layer: Layer, h, positions,
                  collect_cache: bool):
-    y, (k, v) = attn.self_attention(
-        cfg.attention, layer.attn, rmsnorm(h, layer.norm1, cfg.norm_eps),
-        positions, layer.window, layer.theta, cfg.norm_eps)
+    """One layer over the whole prompt; returns (h, cache entry | None)."""
+    x_in = rmsnorm(h, layer.norm1, cfg.norm_eps)
+    if layer.mixer == "attention":
+        y, (k, v) = attn.self_attention(cfg.attention, layer.attn, x_in,
+                                        positions, layer.window,
+                                        layer.theta, cfg.norm_eps)
+        cache = ({"k": k.transpose(1, 2).contiguous(),
+                  "v": v.transpose(1, 2).contiguous()}
+                 if collect_cache else {})
+    else:
+        y, (shift, S) = rwkv.rwkv6_forward(cfg.rwkv6, layer.rwkv, x_in,
+                                           return_state=True)
+        cache = {"att_shift": shift, "wkv": S}
     h = h + y
-    h = h + mlp(layer.mlp, rmsnorm(h, layer.norm2, cfg.norm_eps), cfg.act)
-    cache = ({"k": k.transpose(1, 2).contiguous(),
-              "v": v.transpose(1, 2).contiguous()}
-             if collect_cache else None)
-    return h, cache
+    hn = rmsnorm(h, layer.norm2, cfg.norm_eps)
+    if layer.ffn == "dense":
+        h = h + mlp(layer.mlp, hn, cfg.act)
+    else:
+        y, cache["ffn_shift"] = rwkv.rwkv_ffn_forward(layer.rwkvffn, hn,
+                                                      return_state=True)
+        h = h + y
+    return h, (cache if collect_cache else None)
 
 
 def forward_hidden(cfg: ModelConfig, model: Transformer, x, positions,
@@ -187,28 +229,53 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens):
 # --------------------------------------------------------------------------
 # Decode
 # --------------------------------------------------------------------------
+def _cache_entry(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                 max_seq: int, device):
+    dtype = dtype_of(cfg.dtype)
+    if spec.mixer == "attention":
+        a = cfg.attention
+        shape = (batch, a.num_kv_heads, max_seq, a.head_dim)
+        return {"k": zeros(shape, dtype, device),
+                "v": zeros(shape, dtype, device)}
+    e = rwkv.rwkv6_decode_init(cfg.rwkv6, cfg.d_model, batch, dtype, device)
+    if spec.ffn != "rwkv_ffn":
+        del e["ffn_shift"]
+    return e
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
     """Empty decode cache sized for ``max_seq`` total positions."""
     check_supported(cfg)
-    a = cfg.attention
-    dtype = dtype_of(cfg.dtype)
-    shape = (batch, a.num_kv_heads, max_seq, a.head_dim)
-    return {"layers": [{"k": zeros(shape, dtype, device),
-                        "v": zeros(shape, dtype, device)}
-                       for _ in range(cfg.num_layers)],
+    return {"layers": [_cache_entry(cfg, layer_spec(cfg, l), batch, max_seq,
+                                    device)
+                       for l in range(cfg.num_layers)],
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
 def _decode_layer(cfg: ModelConfig, layer: Layer, c, h, new_len):
     hn = rmsnorm(h, layer.norm1, cfg.norm_eps)
-    k, v = attn.decode_project_kv(cfg.attention, layer.attn, hn, new_len,
-                                  layer.theta, cfg.norm_eps)
-    y, ck, cv = attn.decode_attention_cp(
-        cfg.attention, layer.attn, hn, c["k"], c["v"], k, v, new_len,
-        layer.window, layer.theta, cfg.norm_eps)
+    if layer.mixer == "attention":
+        k, v = attn.decode_project_kv(cfg.attention, layer.attn, hn, new_len,
+                                      layer.theta, cfg.norm_eps)
+        y, ck, cv = attn.decode_attention_cp(
+            cfg.attention, layer.attn, hn, c["k"], c["v"], k, v, new_len,
+            layer.window, layer.theta, cfg.norm_eps)
+        c = dict(c, k=ck, v=cv)
+    else:
+        y, (shift, S) = rwkv.rwkv6_forward(
+            cfg.rwkv6, layer.rwkv, hn, shift_state=c["att_shift"],
+            wkv_state=c["wkv"], return_state=True)
+        c = dict(c, att_shift=shift, wkv=S)
     h = h + y
-    h = h + mlp(layer.mlp, rmsnorm(h, layer.norm2, cfg.norm_eps), cfg.act)
-    return h, {"k": ck, "v": cv}
+    hn = rmsnorm(h, layer.norm2, cfg.norm_eps)
+    if layer.ffn == "dense":
+        h = h + mlp(layer.mlp, hn, cfg.act)
+    else:
+        # no shift state, as the reference (transformer.py, _decode_layer)
+        y, c["ffn_shift"] = rwkv.rwkv_ffn_forward(layer.rwkvffn, hn,
+                                                  return_state=True)
+        h = h + y
+    return h, c
 
 
 def decode_step(cfg: ModelConfig, model: Transformer, cache, tokens):

@@ -14,8 +14,9 @@ handoff is immediate.  Holding standby KV is the resource cost; the
 :mod:`repro_torch.serve.scheduler` tunes how many to keep.
 
 :class:`DecodeEngine` runs the real model on its device (the card unless
-``device="cpu"``): prefill through the flash-attention kernel, every
-RMSNorm through the RMSNorm kernel.  It keeps the host-clock seconds of
+``device="cpu"``): prefill attention through the flash-attention kernel,
+every rwkv6 time-mix through the WKV-scan kernel, every RMSNorm through the
+RMSNorm kernel.  It keeps the host-clock seconds of
 each prefill and each step (``prefill_seconds``, ``step_seconds``); each
 call ends in a read of the greedy token(s), so the clock brackets the
 device work.  :class:`SimulatedEngine` exposes the same interface with a
@@ -98,15 +99,19 @@ class DecodeEngine:
     # -- slot management ----------------------------------------------------
     def insert(self, slot: int, cache1, prompt_len: int, first_token: int,
                req: Request) -> None:
-        """Write a prefilled sequence into ``slot``: its k/v at positions
-        ``[0, S)`` and zeros after them, as the reference's padded
-        ``dynamic_update_slice``."""
+        """Write a prefilled sequence into ``slot``: every tensor of each
+        layer's cache entry, as the reference's padded
+        ``dynamic_update_slice`` over the cache tree; k / v at positions
+        ``[0, S)`` and zeros after them, rwkv6 states whole."""
         assert not self.occupied[slot]
         for big, small in zip(self.cache["layers"], cache1["layers"]):
-            for name in ("k", "v"):
-                S = small[name].shape[2]
-                big[name][slot, :, :S] = small[name][0]
-                big[name][slot, :, S:] = 0
+            for name, t in small.items():
+                if name in ("k", "v"):
+                    S = t.shape[2]
+                    big[name][slot, :, :S] = t[0]
+                    big[name][slot, :, S:] = 0
+                else:
+                    big[name][slot] = t[0]
         self.cache["len"][slot] = prompt_len
         self.occupied[slot] = True
         self.slot_req[slot] = req

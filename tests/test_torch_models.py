@@ -32,7 +32,7 @@ torch.set_num_threads(1)
 
 DENSE = ["llama3.2-1b", "qwen2.5-14b", "stablelm-3b", "gemma3-4b"]
 UNSUPPORTED = {"granite-moe-1b-a400m": "MoE", "qwen3-moe-235b-a22b": "MoE",
-               "jamba-1.5-large-398b": "mamba", "rwkv6-1.6b": "rwkv6",
+               "jamba-1.5-large-398b": "mamba",
                "whisper-large-v3": "encoder-decoder"}
 
 
@@ -64,7 +64,7 @@ def test_catalogs_equal_field_for_field():
         tbase.get_config("nope")
 
 
-@pytest.mark.parametrize("arch", DENSE + ["chameleon-34b"])
+@pytest.mark.parametrize("arch", DENSE + ["chameleon-34b", "rwkv6-1.6b"])
 def test_param_count_and_schedules_equal(arch):
     j, t = jbase.get_config(arch), tbase.get_config(arch)
     assert tm.param_count(t) == jm.param_count(j)
