@@ -6,8 +6,8 @@
 Needs one CUDA card, ``nvcc`` and nothing else: the two kernel libraries
 (the simulator's: the closed and open variants of ``lock_sim_block`` and
 ``lock_transitions_step``, ``lock_sim_step`` and ``oracle_step``; the
-language model's: ``flash_attention``, ``rwkv6_scan`` and ``rmsnorm``) are
-built from ``src/repro_torch/kernels/csrc`` by this run.  Exits non-zero, printing no
+language model's: ``flash_attention``, ``rwkv6_scan``, ``mamba_scan`` and
+``rmsnorm``) are built from ``src/repro_torch/kernels/csrc`` by this run.  Exits non-zero, printing no
 result line, when there is no CUDA device or when any phase fails.
 
 Phases (each but the first prints one JSON line):
@@ -18,7 +18,7 @@ Phases (each but the first prints one JSON line):
    source): seconds, and ptxas's registers / spills for each instantiation
    (the simulator's closed and open variants at 1, 2 and 4 thread slots per
    lane; ``flash_attention`` per dtype x head-dim class; ``rwkv6_scan`` per
-   head dim; ``rmsnorm`` per dtype)
+   head dim; ``mamba_scan`` per state size; ``rmsnorm`` per dtype)
 LM1. ``flash_attention_vs_plain``  ``flash_attention`` against
    ``flash_attention_ref``, both on the card, over dtype {f32, bf16} x hd
    {16, 64, 80, 128, 256} x Sq = Sk {1, 77, 1024, 2048} x GQA group {1, 4}
@@ -59,6 +59,26 @@ LM7. ``serve_rwkv6_at_size``  ``serve_at_size`` for the full rwkv6-1.6b
    (24 layers, bf16, random weights from a seed), the same traffic: every
    prefill and every decode step launching K6 once per layer and K8
    2 * layers + 1 times.
+LM8. ``mamba_scan_vs_plain``  ``mamba_scan`` against ``mamba_scan_ref``,
+   both on the card, f32, over B {1, 2} x T {1, 7, 64, 65, 1024} x d {48,
+   128, 16 384} x N {4, 8, 16} x dt {the model's range, U(1e-3, 1)} x
+   chunk {16, 64}: y and s_T within MAMBA_LIMIT * max(1, max|plain|) each,
+   chunk 16 == chunk 64 bit for bit; bf16 inputs and N = 32 refused.
+LM9. ``jamba_lm_vs_plain``  jamba-1.5-large at full width cut to two
+   layers, (mamba, dense) then (attention, dense), f32 (2 844 696 576
+   parameters, the card's copy filled tensor by tensor): the comparison of
+   ``lm_vs_plain`` and the last mamba states within 1e-3 * max(1,
+   max|CPU|).
+LM10. ``moe_lm_vs_plain``  granite-moe-1b-a400m at full width cut to two
+   layers, f32: the comparison of ``lm_vs_plain`` over its MoE FFNs, with
+   the count of routings whose k-th and (k+1)-th router probabilities lie
+   within 1e-5 on the CPU.
+LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
+   full width, its first 5 layers (4 mamba, 1 attention; 2 MoE, 3 dense
+   FFNs; 24 012 218 368 parameters, bf16), the same traffic: every prefill
+   launching K5 once, K7 4 times and K8 15 times (two a layer, the final
+   norm, one inside each mamba mixer), every decode step K8 15 times and
+   K7 never; the peak bytes of ``init_params`` and of the drain.
 3. ``kernel_vs_plain``  ``lock_sim_block`` against ``lock_sim_block_ref``,
    both on the card, chained from the engine's initial state for 256 steps
    over the closed conformance matrix (every policy id x workload x fault,
@@ -120,7 +140,11 @@ LM7. ``serve_rwkv6_at_size``  ``serve_at_size`` for the full rwkv6-1.6b
    the launches of ``serve_at_size``; ``rwkv6_scan`` at one prefill layer
    (B*H = 32, T = 1024) and one decode step (B*H = 128, T = 1) of
    rwkv6-1.6b, with no library call (none computes the WKV recurrence)
-   and the launches of ``serve_rwkv6_at_size``.
+   and the launches of ``serve_rwkv6_at_size``; ``mamba_scan`` at one
+   prefill layer of jamba (B 1, T 1024, d_in 16 384, N 16), bound by the
+   larger of its bytes, its f32 operations and its exps on the
+   special-function units, with no library call and the launches of
+   ``serve_jamba_at_size``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -157,6 +181,7 @@ from repro_torch.kernels import lock_sim as K  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention as LMA  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan as LMM  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm as LMN  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import \
     rwkv6_scan as LMW  # noqa: E402
@@ -1083,8 +1108,14 @@ def oracle_entry(args):
 BF16_TENSOR_OPS_PER_S = 989e12
 FLASH_HDS = (16, 64, 80, 128, 256)
 FLASH_SEQS = (1, 77, 1024, 2048)
+#: Query heads per KV head: MHA, llama3.2-1b's 4, jamba's 8.
+FLASH_GROUPS = (1, 4, 8)
 FLASH_LIMIT = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-RMS_SHAPES = ((1, 64), (7, 80), (4, 2048), (4096, 2048), (3, 8192))
+#: K8's (rows, D): odd ones, llama3.2-1b's at decode (4 slots) and
+#: prefill, and jamba's: D 8192 for its layer norms, 16384 for the norm
+#: inside each mamba mixer, at decode and at a 1024-token prefill.
+RMS_SHAPES = ((1, 64), (7, 80), (4, 2048), (4096, 2048), (3, 8192),
+              (4, 16384), (1024, 16384))
 LM_VS_PLAIN_PROMPT = 300
 LM_VS_PLAIN_STEPS = 8
 SERVE_ARGV = ["--arch", "llama3.2-1b", "--requests", "16", "--slots", "4",
@@ -1098,6 +1129,35 @@ RWKV6_CHUNKS = (16, 64)
 #: (four partial sums over i, the bonus apart, FMAs), and the state carries
 #: each step's rounding into the next.
 RWKV6_LIMIT = 1e-5
+MAMBA_BS = (1, 2)
+MAMBA_TS = (1, 7, 64, 65, 1024)
+MAMBA_DS = (48, 128, 16384)
+MAMBA_NS = (4, 8, 16)
+MAMBA_CHUNKS = (16, 64)
+#: K7 against its plain version: max|d| of y and of s_T each at most this
+#: times max(1, max|plain|), K6's limit.  A step's exps are the accurate
+#: expf on both sides, the state update an FMA in the kernel, and the y sum
+#: runs in another order; the decay keeps each step's rounding from
+#: growing.
+MAMBA_LIMIT = 1e-5
+#: Special-function-unit rate of the H100 SXM: 16 exp2 results a clock per
+#: SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
+#: compute capability 9.0) x 132 SMs x 1.98 GHz, the boost clock behind the
+#: data sheet's 67 TFLOP/s f32.  Each expf issues one.
+SFU_EXPS_PER_S = 16 * 132 * 1.98e9
+#: jamba-1.5-large at full width: the first JAMBA_LAYERS layers of its
+#: period (4 mamba, 1 attention; 2 MoE and 3 dense FFNs) serve on the card.
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_LAYERS = 5
+#: jamba_lm_vs_plain: the card's scan outputs and states against the CPU's,
+#: as max|d| over max|CPU| (the upstream activations already differ by f32
+#: rounding), and the least max|CPU| that makes that comparison hold
+#: anything: the states of this init lie near 5e-4 and y near 5e-5.
+JAMBA_SCAN_LIMIT = 1e-3
+JAMBA_SCAN_FLOOR = 1e-6
+#: Router-probability gap under which the card and the CPU may route a
+#: token to different experts in f32.
+MOE_MARGIN = 1e-5
 
 
 def flash_excess(got, want):
@@ -1115,20 +1175,24 @@ def flash_excess(got, want):
 
 
 def flash_cases():
-    """(dtype, hd, Sq, Sk, group, causal, window, softcap): the matrix
-    dtype x hd x Sq = Sk x group x causal x window x softcap, then Sq != Sk
-    (300 queries against 1024 keys) over the mask options."""
+    """(dtype, hd, Sq, Sk, BH, group, causal, window, softcap): the matrix
+    dtype x hd x Sq = Sk x group x causal x window x softcap on 8 query
+    heads, then Sq != Sk (300 queries against 1024 keys) over the mask
+    options, then jamba's attention layer as it serves (64 query heads on
+    8 KV heads, hd 128, causal, no window, no softcap)."""
     masks = [(c, w, s) for c in (True, False) for w in (0, 64)
              for s in (0.0, 30.0)]
     for dtype in FLASH_LIMIT:
         for hd in FLASH_HDS:
             for S in FLASH_SEQS:
-                for group in (1, 4):
+                for group in FLASH_GROUPS:
                     for m in masks:
-                        yield (dtype, hd, S, S, group, *m)
-        for group in (1, 4):
+                        yield (dtype, hd, S, S, 8, group, *m)
+        for group in FLASH_GROUPS:
             for m in masks:
-                yield (dtype, 64, 300, 1024, group, *m)
+                yield (dtype, 64, 300, 1024, 8, group, *m)
+        for S in FLASH_SEQS:
+            yield (dtype, 128, S, S, 64, 8, True, 0, 0.0)
 
 
 def phase_flash_attention_vs_plain():
@@ -1139,8 +1203,8 @@ def phase_flash_attention_vs_plain():
     excess = dict(worst)
     n = 0
     before = LMA.launches
-    for dtype, hd, Sq, Sk, group, causal, window, softcap in flash_cases():
-        BH = 4
+    for dtype, hd, Sq, Sk, BH, group, causal, window, softcap in \
+            flash_cases():
         q = torch.randn((BH, Sq, hd), generator=gen, device=DEV).to(dtype)
         k, v = (torch.randn((BH // group, Sk, hd), generator=gen,
                             device=DEV).to(dtype) for _ in range(2))
@@ -1148,7 +1212,7 @@ def phase_flash_attention_vs_plain():
         got = LMA(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         where = (f"flash_attention {dtype} hd={hd} Sq={Sq} Sk={Sk} "
-                 f"group={group} {kw}")
+                 f"BH={BH} group={group} {kw}")
         if got.shape != want.shape or got.dtype != dtype:
             fail(f"{where}: {got.shape} {got.dtype}")
         err = float((got.float() - want.float()).abs().max())
@@ -1288,20 +1352,23 @@ def compare_lm(phase, cfg, cpu_model, gpu_model):
     """A ``LM_VS_PLAIN_PROMPT``-token prefill and ``LM_VS_PLAIN_STEPS``
     decode steps of ``cfg`` on the CPU and on the card, the card fed the
     CPU's greedy tokens: logits within 1e-3, greedy tokens equal where the
-    CPU's top-2 margin exceeds 1e-2, K8 launched 2 * layers + 1 times a
-    forward.  Returns what it read and the last caches of the CPU and the
+    CPU's top-2 margin exceeds 1e-2, K8 launched :func:`k8_per_forward`
+    times a forward and K7 once per mamba layer in the prefill.  Returns what it read and the last caches of the CPU and the
     card."""
     rng = np.random.default_rng(0)
     prompt = [int(t) for t in rng.integers(2, cfg.vocab_size - 1,
                                            LM_VS_PLAIN_PROMPT)]
     cpu, forced, cpu_cache = lm_run(cfg, cpu_model, "cpu", prompt,
                                     LM_VS_PLAIN_STEPS)
-    k5, k6, k8 = LMA.launches, LMW.launches, LMN.launches
+    k5, k6, k7, k8 = (LMA.launches, LMW.launches, LMM.launches,
+                      LMN.launches)
     gpu, _, gpu_cache = lm_run(cfg, gpu_model, DEV, prompt,
                                LM_VS_PLAIN_STEPS, forced)
-    k5, k6, k8 = LMA.launches - k5, LMW.launches - k6, LMN.launches - k8
-    if k8 != (2 * cfg.num_layers + 1) * (LM_VS_PLAIN_STEPS + 1):
-        fail(f"{phase}: {k8} K8 launches on the card")
+    k5, k6, k7, k8 = (LMA.launches - k5, LMW.launches - k6,
+                      LMM.launches - k7, LMN.launches - k8)
+    if (k8 != k8_per_forward(cfg) * (LM_VS_PLAIN_STEPS + 1)
+            or k7 != mixer_counts(cfg)["mamba"]):
+        fail(f"{phase}: {k7} K7 / {k8} K8 launches on the card")
     worst, clear, agree = 0.0, 0, 0
     for i, (c, g) in enumerate(zip(cpu, gpu)):
         if not torch.isfinite(g).all():
@@ -1322,50 +1389,77 @@ def compare_lm(phase, cfg, cpu_model, gpu_model):
             "logits_max_abs_err": worst, "limit": 1e-3,
             "steps_compared": len(cpu), "steps_with_clear_margin": clear,
             "greedy_equal": agree, "k5_launches": k5, "k6_launches": k6,
-            "k8_launches": k8}, cpu_cache, gpu_cache
+            "k7_launches": k7, "k8_launches": k8}, cpu_cache, gpu_cache
 
 
-def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b"):
-    """Full ``arch`` (bf16, random weights from a seed) through
+def mixer_counts(cfg):
+    """Layers per mixer kind of ``cfg``."""
+    from repro_torch.models.transformer import layer_spec
+    mixers = [layer_spec(cfg, l).mixer for l in range(cfg.num_layers)]
+    return {m: mixers.count(m) for m in ("attention", "rwkv6", "mamba")}
+
+
+def k8_per_forward(cfg):
+    """K8 launches of one forward: two norms a layer, the final norm, and
+    the norm inside each mamba mixer (at d_in)."""
+    return 2 * cfg.num_layers + 1 + mixer_counts(cfg)["mamba"]
+
+
+def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
+                        layers=None):
+    """Full-width ``arch`` (bf16, random weights from a seed; its first
+    ``layers`` layers when given, else all) through
     ``repro_torch.launch.serve``'s code path: the mutable policy, 4 slots,
     max_seq 2048, 16 requests of 128-1024 prompt tokens, 32 new tokens
     each.  Each prefill must launch K5 once per attention layer, K6 once
-    per rwkv6 layer and K8 2 * layers + 1 times, and each decode step K6
-    and K8 alike."""
+    per rwkv6 layer, K7 once per mamba layer and K8 :func:`k8_per_forward`
+    times, and each decode step K6 and K8 alike and K7 never."""
+    from repro_torch.configs import base as CB
     from repro_torch.launch import serve
     argv = ["--arch", arch] + SERVE_ARGV[2:]
     args = serve.parse_args(argv)
+    cut = None
+    if layers is not None:
+        full = CB.get_config(arch)
+        cut = full.replace(num_layers=layers, pattern=full.pattern[:layers])
+    gc.collect()                # what earlier phases left: not these peaks
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, engine = serve.build(args)
+    cfg, engine = serve.build(args, cut)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     warm = serve.parse_args(argv[:2] + ["--requests", "2", "--slots", "4",
                                         "--max-new", "2", "--seed", "1"])
     serve.run(warm, cfg, engine)               # cuBLAS handles, first calls
-    at_prefill = {"k6": 0, "k8": 0}
+    at_prefill = {"k6": 0, "k7": 0, "k8": 0}
     real_prefill = engine.prefill
 
     def prefill(prompt):
-        n6, n8 = LMW.launches, LMN.launches
+        n6, n7, n8 = LMW.launches, LMM.launches, LMN.launches
         res = real_prefill(prompt)
         at_prefill["k6"] += LMW.launches - n6
+        at_prefill["k7"] += LMM.launches - n7
         at_prefill["k8"] += LMN.launches - n8
         return res
 
     engine.prefill = prefill
     engine.prefill_seconds.clear()
     engine.step_seconds.clear()
-    gc.collect()                # what earlier phases left: not this peak
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    LMA.launches = LMW.launches = LMN.launches = 0   # the main path, counted
+    # the main path, counted
+    LMA.launches = LMW.launches = LMM.launches = LMN.launches = 0
     try:
         out = serve.run(args, cfg, engine)
         torch.cuda.synchronize()
     finally:
         del engine.prefill      # the class's method again, and no cycle
-    k5, k6, k8 = LMA.launches, LMW.launches, LMN.launches
-    k6_pre, k8_pre = at_prefill["k6"], at_prefill["k8"]
+    k5, k6, k7, k8 = LMA.launches, LMW.launches, LMM.launches, LMN.launches
+    k6_pre, k7_pre, k8_pre = (at_prefill[k] for k in ("k6", "k7", "k8"))
     peak = torch.cuda.max_memory_allocated()
     reqs, s = out["requests"], out["summary"]
     if s["completed"] != args.requests:
@@ -1376,24 +1470,23 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b"):
             fail(f"{phase}: request {r.rid} generated {r.generated}")
     prefill_ms = [t * 1e3 for t in engine.prefill_seconds]
     step_ms = [t * 1e3 for t in engine.step_seconds]
-    from repro_torch.models.transformer import layer_spec
-    mixers = [layer_spec(cfg, l).mixer for l in range(cfg.num_layers)]
-    n_attn, n_rwkv = mixers.count("attention"), mixers.count("rwkv6")
-    per_forward = 2 * cfg.num_layers + 1
+    n = mixer_counts(cfg)
+    per_forward = k8_per_forward(cfg)
     if (len(prefill_ms) != args.requests
-            or k5 != n_attn * args.requests
-            or k6_pre != n_rwkv * args.requests
-            or k6 - k6_pre != n_rwkv * len(step_ms)
+            or k5 != n["attention"] * args.requests
+            or k6_pre != n["rwkv6"] * args.requests
+            or k6 - k6_pre != n["rwkv6"] * len(step_ms)
+            or k7_pre != n["mamba"] * args.requests or k7 != k7_pre
             or k8_pre != per_forward * args.requests
             or k8 - k8_pre != per_forward * len(step_ms)):
-        fail(f"{phase}: {k5} K5 / {k6_pre} + {k6 - k6_pre} K6 / {k8_pre} + "
-             f"{k8 - k8_pre} K8 launches for {len(prefill_ms)} prefills "
-             f"and {len(step_ms)} decode steps")
+        fail(f"{phase}: {k5} K5 / {k6_pre} + {k6 - k6_pre} K6 / {k7_pre} + "
+             f"{k7 - k7_pre} K7 / {k8_pre} + {k8 - k8_pre} K8 launches for "
+             f"{len(prefill_ms)} prefills and {len(step_ms)} decode steps")
     seconds = out["seconds"]
     t_trace = time.perf_counter()
-    res, busy, k5_s, k6_s, k8_s = profiled(
+    res, busy, k5_s, k6_s, k7_s, k8_s = profiled(
         lambda: serve.run(args, cfg, engine), "flash_attention_kernel",
-        "rwkv6_scan_kernel", "rmsnorm_kernel")
+        "rwkv6_scan_kernel", "mamba_scan_kernel", "rmsnorm_kernel")
     trace_s = time.perf_counter() - t_trace
     traced = busy > 0.0
     tokens = sum(len(r.generated) for r in reqs)
@@ -1411,21 +1504,26 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b"):
           "decode_steps": len(step_ms),
           "k5_launches": k5, "k6_launches": k6,
           "k6_launches_prefill": k6_pre, "k6_launches_decode": k6 - k6_pre,
+          "k7_launches": k7, "k7_launches_prefill": k7_pre,
+          "k7_launches_decode": k7 - k7_pre,
           "k8_launches": k8, "k8_launches_prefill": k8_pre,
-          "k8_launches_decode": k8 - k8_pre,
+          "k8_launches_decode": k8 - k8_pre, "k8_per_forward": per_forward,
           "late_handoff_rate": s["late_handoff_rate"],
           "avg_standby": s["avg_standby"],
           "window_trace_tail": out["stats"].window_trace[-8:],
-          "peak_bytes": peak, "build_seconds": build_s,
+          "init_peak_bytes": init_peak, "peak_bytes": peak,
+          "build_seconds": build_s,
           "traced_seconds": res["seconds"],
           "trace_and_read_seconds": trace_s,
           "device_busy_seconds": busy if traced else None,
           "k5_device_seconds": k5_s if traced else None,
           "k6_device_seconds": k6_s if traced else None,
+          "k7_device_seconds": k7_s if traced else None,
           "k8_device_seconds": k8_s if traced else None,
           "device_idle_share": 1.0 - busy / seconds if traced else None,
           "phase_seconds": time.perf_counter() - t0})
     return {"k5": k5, "k6_prefill": k6_pre, "k6_decode": k6 - k6_pre,
+            "k7_prefill": k7_pre, "k7_decode": k7 - k7_pre,
             "k8_prefill": k8_pre, "k8_decode": k8 - k8_pre}
 
 
@@ -1589,6 +1687,248 @@ def rwkv6_entries(serve_launches, scan_err):
     return out
 
 
+def mamba_inputs(gen, B, T, d, N, dt_range):
+    """Seeded f32 operands of K7 on the card.  ``dt_range`` "model": the
+    softplus of a projection around the mamba init's bias (dt log-uniform
+    in [1e-3, 0.1]); "wide": U(1e-3, 1).  a = -(1..N) scaled by U(0.5, 2),
+    about the S4D-real init."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    uni = lambda *shape: torch.rand(shape, generator=gen, device=DEV)
+    if dt_range == "model":
+        dt0 = torch.exp(np.log(1e-3) + np.log(100.0) * uni(B, T, d))
+        dt = torch.nn.functional.softplus(
+            torch.log(torch.expm1(dt0)) + 0.1 * rnd(B, T, d))
+    else:
+        dt = 1e-3 + (1.0 - 1e-3) * uni(B, T, d)
+    a = -torch.arange(1, N + 1, device=DEV, dtype=torch.float32) \
+        * (0.5 + 1.5 * uni(d, N))
+    return dt, rnd(B, T, d), rnd(B, T, N), rnd(B, T, N), a
+
+
+def mamba_excess(got, want):
+    """max|got - want| over MAMBA_LIMIT * max(1, max|want|): at most 1
+    where the kernel agrees."""
+    scale = max(1.0, float(want.abs().max()))
+    return float((got - want).abs().max()) / (MAMBA_LIMIT * scale)
+
+
+def phase_mamba_scan_vs_plain():
+    """K7 against mamba_scan_ref, both on the card."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    cases = [(B, T, d, N, dr) for B in MAMBA_BS for T in MAMBA_TS
+             for d in MAMBA_DS for N in MAMBA_NS for dr in ("model", "wide")]
+    worst = {"y": 0.0, "s_T": 0.0}
+    excess = 0.0
+    n_launch = 0
+    before = LMM.launches
+    for B, T, d, N, dr in cases:
+        args = mamba_inputs(gen, B, T, d, N, dr)
+        want = ref.mamba_scan_ref(*args)
+        outs = [LMM(*args, chunk=c) for c in MAMBA_CHUNKS]
+        n_launch += len(outs)
+        where = f"mamba_scan B={B} T={T} d={d} N={N} dt={dr}"
+        for (y, sT), c in zip(outs, MAMBA_CHUNKS):
+            if (y.shape != want[0].shape or sT.shape != want[1].shape
+                    or y.dtype != torch.float32 or sT.dtype != torch.float32):
+                fail(f"{where} chunk={c}: {y.shape} {sT.shape} {y.dtype}")
+            for name, g, wv in (("y", y, want[0]), ("s_T", sT, want[1])):
+                over = mamba_excess(g, wv)
+                if not torch.isfinite(g).all() or not over <= 1.0:
+                    fail(f"{where} chunk={c}: {name} {over} x its limit")
+                worst[name] = max(worst[name],
+                                  float((g - wv).abs().max()))
+                excess = max(excess, over)
+        if not all(torch.equal(a, b) for a, b in zip(outs[0], outs[1])):
+            fail(f"{where}: chunk {MAMBA_CHUNKS} results differ")
+    torch.cuda.synchronize()
+    refused = []
+    for name, dtype, N in (("bf16", torch.bfloat16, 16),
+                           ("N=32", torch.float32, 32)):
+        x = torch.zeros((1, 8, 128), device=DEV, dtype=dtype)
+        bc = torch.zeros((1, 8, N), device=DEV, dtype=dtype)
+        a = torch.zeros((128, N), device=DEV, dtype=dtype)
+        try:
+            LMM(x, x, bc, bc, a)
+        except (TypeError, ValueError) as e:
+            refused.append(f"{name}: {type(e).__name__}")
+    if refused != ["bf16: TypeError", "N=32: ValueError"]:
+        fail(f"mamba_scan: bf16 / N=32 not refused as expected ({refused})")
+    if LMM.launches - before != n_launch:
+        fail(f"mamba_scan: {LMM.launches - before} launches for {n_launch}")
+    emit({"phase": "mamba_scan_vs_plain", "cases": len(cases),
+          "launches": n_launch, "chunks": list(MAMBA_CHUNKS),
+          "max_abs_err": worst, "limit": f"{MAMBA_LIMIT} * max(1, "
+          f"max|plain|)", "max_err_over_limit": excess,
+          "chunks_bit_equal": True, "refused": refused,
+          "seconds": time.perf_counter() - t0})
+    return max(worst.values())
+
+
+def card_copy(cfg, cpu_model):
+    """The card's copy of ``cpu_model``, allocated on the card from the
+    shapes and filled tensor by tensor: host memory holds the model once."""
+    from repro_torch.models import transformer
+    model = transformer.init_params(cfg, None, "meta").to_empty(device=DEV)
+    src = dict(cpu_model.named_parameters())
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(src[name])
+    return model
+
+
+def phase_jamba_lm_vs_plain():
+    """jamba-1.5-large at full width cut to two layers, (mamba, dense) then
+    (attention, dense), f32, one seeded set of parameters: the comparison
+    of ``lm_vs_plain`` (K5, K7, K8 on the card, plain versions on the CPU),
+    plus the mamba layer's own scan.  At the reference's init the scan's
+    share of the mixer's output is about 1e-4 (y = s . C beside the skip
+    x d), so the logits cannot see K7: y and s_T of every prefill scan and
+    the last ssm state are held, each within JAMBA_SCAN_LIMIT of the CPU's
+    own magnitude, which must exceed JAMBA_SCAN_FLOOR.  (An MoE layer at
+    this width is 9.66 B parameters, 38.6 GB in f32: MoE is held at
+    granite's width.)"""
+    from repro_torch import models
+    from repro_torch.configs import base as CB
+    from repro_torch.kernels import ops as KO
+    full = CB.get_config(JAMBA)
+    cfg = full.replace(num_layers=2, pattern=(full.pattern[0],
+                                              full.pattern[4]),
+                       dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    cpu_model = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    gpu_model = card_copy(cfg, cpu_model)
+    scans = {"cpu": [], "cuda": []}
+    real = KO.selective_scan
+
+    def selective_scan(dt, x, Bm, Cm, a):
+        y, sT = real(dt, x, Bm, Cm, a)
+        scans[x.device.type].append((y.cpu(), sT.cpu(),
+                                     float(x.abs().max())))
+        return y, sT
+
+    KO.selective_scan = selective_scan
+    try:
+        out, cpu_cache, gpu_cache = compare_lm("jamba_lm_vs_plain", cfg,
+                                               cpu_model, gpu_model)
+    finally:
+        KO.selective_scan = real
+    if out["k5_launches"] != 1 or out["k6_launches"] != 0:
+        fail(f"jamba_lm_vs_plain: {out} launches on the card")
+    pairs = [(f"scan {i} {name}", g, c)
+             for i, (cs, gs) in enumerate(zip(scans["cpu"], scans["cuda"]))
+             for name, c, g in (("y", cs[0], gs[0]), ("s_T", cs[1], gs[1]))]
+    pairs += [("last ssm state", g["ssm"].cpu(), c["ssm"])
+              for c, g in zip(cpu_cache["layers"], gpu_cache["layers"])
+              if "ssm" in c]
+    if (len(scans["cpu"]) != mixer_counts(cfg)["mamba"]
+            or len(scans["cuda"]) != len(scans["cpu"]) or len(pairs) < 3):
+        fail(f"jamba_lm_vs_plain: {len(scans['cpu'])} / "
+             f"{len(scans['cuda'])} scans on the CPU / card")
+    rel, least = 0.0, float("inf")
+    for what, g, c in pairs:
+        mag = float(c.abs().max())
+        err = float((g - c).abs().max()) / max(mag, 1e-30)
+        if not mag >= JAMBA_SCAN_FLOOR or not err <= JAMBA_SCAN_LIMIT:
+            fail(f"jamba_lm_vs_plain: {what}: max|d| {err} x max|CPU| "
+                 f"{mag}")
+        rel, least = max(rel, err), min(least, mag)
+    share = max(float(c[0].abs().max()) / c[2] for c in scans["cpu"])
+    emit({"phase": "jamba_lm_vs_plain", "arch": JAMBA,
+          "pattern": [[p.mixer, p.ffn] for p in cfg.pattern],
+          "params": models.param_count(cfg), **out,
+          "scan_share_of_mixer": share,
+          "scan_max_err_over_magnitude": rel,
+          "scan_limit": JAMBA_SCAN_LIMIT, "scan_least_magnitude": least,
+          "scan_magnitude_floor": JAMBA_SCAN_FLOOR,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_moe_lm_vs_plain():
+    """granite-moe-1b-a400m at full width cut to two layers, f32, one seeded
+    set of parameters: the comparison of ``lm_vs_plain`` for the MoE FFN
+    (routing and every expert on the card against the CPU), with the count
+    of routings whose k-th and (k+1)-th probabilities lie within
+    MOE_MARGIN on the CPU (there the two may pick differently)."""
+    import copy
+
+    from repro_torch import models
+    from repro_torch.configs import base as CB
+    from repro_torch.models import moe
+    cfg = CB.get_config("granite-moe-1b-a400m").replace(
+        num_layers=2, dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    cpu_model = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(DEV)
+    gaps = []
+    real = moe.route
+
+    def route(mcfg, router_w, tokens):
+        res = real(mcfg, router_w, tokens)
+        if tokens.device.type == "cpu":
+            top = torch.topk(res[2], mcfg.top_k + 1, dim=-1).values
+            gaps.append(top[:, -2] - top[:, -1])
+        return res
+
+    moe.route = route
+    try:
+        out, _, _ = compare_lm("moe_lm_vs_plain", cfg, cpu_model, gpu_model)
+    finally:
+        moe.route = real
+    gaps = torch.cat(gaps)
+    if out["k5_launches"] != cfg.num_layers or out["k7_launches"] != 0:
+        fail(f"moe_lm_vs_plain: {out} launches on the card")
+    emit({"phase": "moe_lm_vs_plain", "arch": "granite-moe-1b-a400m",
+          "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k, **out,
+          "routings": gaps.numel(), "router_margin": MOE_MARGIN,
+          "routings_within_margin": int((gaps < MOE_MARGIN).sum()),
+          "min_router_gap": float(gaps.min()),
+          "seconds": time.perf_counter() - t0})
+
+
+def mamba_entries(serve_launches, scan_err):
+    """K7 at one prefill layer of jamba-1.5-large (B 1, T 1024, d_in
+    16 384, N 16), f32: device ms, with-host ms, plain ms, the bound; no
+    PyTorch call computes the selective scan, so no library ms."""
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    B, T, d, N = 1, 1024, 16384, 16
+    args = mamba_inputs(gen, B, T, d, N, "model")
+    kern = lambda: LMM(*args)
+    plain = lambda: ref.mamba_scan_ref(*args)
+    (y, sT), want = kern(), plain()
+    over = max(mamba_excess(y, want[0]), mamba_excess(sT, want[1]))
+    if not over <= 1.0:
+        fail(f"mamba_scan at the prefill shape: {over} x its limit")
+    err = max(float((y - want[0]).abs().max()),
+              float((sT - want[1]).abs().max()))
+    # dt, x, Bm, Cm, a read once; y and s_T written once.  Per (t, c, n):
+    # dt * a, s * da, (dt x) * B and its add, s * C and its add: six f32
+    # operations, and one exp on the special-function units
+    n_bytes = nbytes(args) + nbytes((y, sT))
+    exps = B * T * d * N
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = 6 * exps / FP32_OPS_PER_S * 1e3
+    sfu_ms = exps / SFU_EXPS_PER_S * 1e3
+    ops_ms = max(flops_ms, sfu_ms)
+    return [{"name": "mamba_scan", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+             "replaces": "src/repro/kernels/mamba_scan.py:79",
+             "launches": serve_launches["k7_prefill"],
+             "max_abs_err": max(scan_err, err),
+             "ms": median_ms(kern, 20, hide_host=True),
+             "with_host_ms": median_ms(kern, 20),
+             "plain_ms": median_ms(plain, 3), "library_ms": None,
+             "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+             "fp32_ops_ms": flops_ms, "sfu_exp_ms": sfu_ms, "exps": exps,
+             "sfu_exps_per_s": SFU_EXPS_PER_S, "bytes": n_bytes,
+             "shape": [B, T, d, N], "dtype": "float32",
+             "path": "serve_jamba_at_size prefill"}]
+
+
 def lm_entries(serve_launches, flash_err, rms_err):
     """K5 at one prefill layer of llama3.2-1b (Sq = Sk = 1024, B*H = 32,
     B*KV = 8, hd 64, bf16, causal) and K8 at 1024 x 2048 (prefill) and
@@ -1696,8 +2036,8 @@ def main():
     sim_build, lm_build = KB.build_libraries([K.LIBRARY, lm_lib.LIBRARY])
     # one "Compiling entry function" line names each instantiation
     # (lock_sim_block_kernel<NS, OPEN>, flash_attention_kernel<T, NJ>,
-    # rwkv6_scan_kernel<N>, rmsnorm_kernel<T>), its registers and spills
-    # follow
+    # rwkv6_scan_kernel<N>, mamba_scan_kernel<N>, rmsnorm_kernel<T>), its
+    # registers and spills follow
     ptxas = lambda b: [ln.strip() for ln in b.log.splitlines()
                        if "entry function" in ln or "registers" in ln
                        or "spill" in ln]
@@ -1719,6 +2059,11 @@ def main():
     scan_err = phase_rwkv6_scan_vs_plain()
     phase_rwkv6_lm_vs_plain()
     rwkv6_launches = phase_serve_at_size("serve_rwkv6_at_size", "rwkv6-1.6b")
+    mamba_err = phase_mamba_scan_vs_plain()
+    phase_jamba_lm_vs_plain()
+    phase_moe_lm_vs_plain()
+    jamba_launches = phase_serve_at_size("serve_jamba_at_size", JAMBA,
+                                         JAMBA_LAYERS)
     max_abs_err = phase_kernel_vs_plain()
     open_abs_err = phase_open_kernel_vs_plain()
     step_abs_err = phase_step_kernels_vs_plain()
@@ -1734,7 +2079,8 @@ def main():
                               open_abs_err, step_abs_err)
                + [oracle_entry(oracle_args)]
                + lm_entries(serve_launches, flash_err, rms_err)
-               + rwkv6_entries(rwkv6_launches, scan_err))
+               + rwkv6_entries(rwkv6_launches, scan_err)
+               + mamba_entries(jamba_launches, mamba_err))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True,

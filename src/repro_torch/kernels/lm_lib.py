@@ -1,9 +1,10 @@
 """The language model's kernel library: ``csrc/flash_attention.cu`` (K5),
-``csrc/rwkv6_scan.cu`` (K6) and ``csrc/rmsnorm.cu`` (K8), built into
-``build/repro_torch/liblm_<hash>.so`` at the first launch of any of their
-wrappers (:mod:`repro_torch.kernels.flash_attention`,
-:mod:`repro_torch.kernels.rwkv6_scan`, :mod:`repro_torch.kernels.rmsnorm`)
-by :mod:`repro_torch.kernels.build`.
+``csrc/rwkv6_scan.cu`` (K6), ``csrc/mamba_scan.cu`` (K7) and
+``csrc/rmsnorm.cu`` (K8), built into ``build/repro_torch/liblm_<hash>.so``
+at the first launch of any of their wrappers
+(:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.rwkv6_scan`, :mod:`repro_torch.kernels.mamba_scan`,
+:mod:`repro_torch.kernels.rmsnorm`) by :mod:`repro_torch.kernels.build`.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 
 from . import build
 
-SOURCES = ("flash_attention.cu", "rwkv6_scan.cu", "rmsnorm.cu")
+SOURCES = ("flash_attention.cu", "rwkv6_scan.cu", "mamba_scan.cu",
+           "rmsnorm.cu")
 #: Compiler flags of the sources.  FMA contraction stays on: the kernels
 #: are held to their plain versions by a tolerance, not bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -33,6 +35,7 @@ def library():
         "flash_attention_launch": [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                    i32, i32, i32, f32, f32, i32],
         "rwkv6_scan_launch": [ptr] * 8 + [i32] * 4,
+        "mamba_scan_launch": [ptr] * 7 + [i32] * 5,
         "rmsnorm_launch": [ptr, ptr, ptr, i32, i32, f32, i32]})
 
 

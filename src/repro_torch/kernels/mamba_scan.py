@@ -1,0 +1,93 @@
+"""Mamba selective scan: the hand-written Hopper kernel K7 and its wrapper.
+
+The port of the Pallas TPU kernel ``repro/kernels/mamba_scan.py``: per
+batch row and channel, the state row s (N) carried across the sequence from
+zero, ``s <- exp(dt_t a) * s + (dt_t x_t) B_t`` and ``y_t = s . C_t``, in
+f32 (``csrc/mamba_scan.cu``; plain version
+:func:`repro_torch.kernels.ref.mamba_scan_ref`).  Beside y it returns the
+final state, which the reference's wrapper does not: the prefill cache
+takes it from the same pass.
+
+Layout: dt, x (B, T, d); Bm, Cm (B, T, N); a (d, N) -- the model's own, so
+:func:`repro_torch.kernels.ops.selective_scan` maps nothing.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import lm_lib, ref
+
+#: State sizes the kernel is built for: the catalog's (16), the tiny
+#: configs' (4) and the JAX kernel tests' (8).
+STATE_SIZES = (4, 8, 16)
+#: Most time steps the kernel stages in shared memory at once.
+MAX_CHUNK = 128
+
+
+def check_operands(dt, x, Bm, Cm, a, chunk):
+    """Raise unless the kernel takes the operands: f32 (``TypeError``), one
+    device, dt / x (B, T, d) alike, Bm / Cm (B, T, N), a (d, N), N in
+    :data:`STATE_SIZES`, B and d at least 1, 1 <= chunk <= :data:`MAX_CHUNK`,
+    contiguous and 16-byte aligned (``ValueError``)."""
+    ops = [("dt", dt), ("x", x), ("Bm", Bm), ("Cm", Cm), ("a", a)]
+    for name, t in ops:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype}; the kernel takes "
+                            f"float32")
+        if t.device != x.device:
+            raise ValueError(f"{name}: on {t.device}, x is on {x.device}")
+    if x.ndim != 3 or a.ndim != 2:
+        raise ValueError(f"x {tuple(x.shape)} / a {tuple(a.shape)}: expected "
+                         f"(B, T, d) and (d, N)")
+    B, T, d = x.shape
+    N = a.shape[1]
+    if tuple(dt.shape) != (B, T, d):
+        raise ValueError(f"dt {tuple(dt.shape)} does not match x "
+                         f"{(B, T, d)}")
+    for name, t in (("Bm", Bm), ("Cm", Cm)):
+        if tuple(t.shape) != (B, T, N):
+            raise ValueError(f"{name} {tuple(t.shape)}: expected {(B, T, N)}")
+    if a.shape[0] != d:
+        raise ValueError(f"a {tuple(a.shape)}: expected {(d, N)}")
+    if N not in STATE_SIZES:
+        raise ValueError(f"state size N={N}: the kernel is built for "
+                         f"{STATE_SIZES}")
+    if B == 0 or d == 0:
+        raise ValueError(f"B={B}, d={d}: no rows")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk={chunk}: the kernel stages 1 to "
+                         f"{MAX_CHUNK} steps at once")
+    for name, t in ops:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: not contiguous or not 16-byte "
+                             f"aligned")
+
+
+def mamba_scan(dt, x, Bm, Cm, a, *, chunk: int = 64):
+    """dt, x: (B, T, d), dt > 0; Bm, Cm: (B, T, N); a: (d, N), negative.
+    Returns (y (B, T, d) f32, s_T (B, d, N) f32).
+
+    CPU tensors go through the plain version.  Other tensors are checked
+    (:func:`check_operands`) and, on CUDA, launch the kernel on the current
+    stream, adding one to ``mamba_scan.launches``; there is no fallback.
+    ``chunk`` is how many steps the kernel stages at once; the result does
+    not depend on it."""
+    if x.device.type == "cpu":
+        return ref.mamba_scan_ref(dt, x, Bm, Cm, a)
+    check_operands(dt, x, Bm, Cm, a, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba_scan runs on cuda or cpu tensors, not "
+                         f"{x.device}")
+    B, T, d = x.shape
+    N = a.shape[1]
+    y = torch.empty_like(x)
+    sT = torch.empty((B, d, N), dtype=torch.float32, device=x.device)
+    lm_lib.launch("mamba_scan", x.device, dt.data_ptr(), x.data_ptr(),
+                  Bm.data_ptr(), Cm.data_ptr(), a.data_ptr(), y.data_ptr(),
+                  sT.data_ptr(), B, T, d, N, int(chunk))
+    mamba_scan.launches += 1
+    return y, sT
+
+
+mamba_scan.launches = 0

@@ -1,5 +1,5 @@
 """Dispatch wrappers: model-layout tensors -> the kernels' layouts (K5
-attention, K6 the RWKV6 WKV scan).
+attention, K6 the RWKV6 WKV scan, K7 the Mamba selective scan).
 
 The port of ``repro/kernels/ops.py``.  The reference picks Pallas or its
 plain version by backend and an environment variable (``use_pallas()``);
@@ -13,6 +13,7 @@ mapping: :func:`repro_torch.models.layers.rmsnorm` calls K8's wrapper
 from __future__ import annotations
 
 from .flash_attention import flash_attention
+from .mamba_scan import mamba_scan
 from .rwkv6_scan import rwkv6_scan
 
 
@@ -27,7 +28,6 @@ def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     o = flash_attention(qk, kk, vk, causal=causal, window=int(window),
                         softcap=softcap)
     return o.reshape(B, H, Sq, hd).transpose(1, 2)
-
 
 
 def wkv(r, k, v, w, u, head_dim: int, s0=None):
@@ -48,3 +48,10 @@ def wkv(r, k, v, w, u, head_dim: int, s0=None):
     y, sT = rwkv6_scan(rb, kb, vb, wb, ub, s0b)
     y = y.reshape(B, H, T, n).transpose(1, 2).reshape(B, T, D)
     return y, sT.reshape(B, H, n, n)
+
+
+def selective_scan(dt, x, Bm, Cm, a):
+    """Model layout dt / x (B, T, d_in), Bm / Cm (B, T, N), a (d_in, N) is
+    K7's own -> (y (B, T, d_in) f32, the final state (B, d_in, N) f32): the
+    prefill's decode cache takes the state from the same pass."""
+    return mamba_scan(dt, x, Bm, Cm, a)

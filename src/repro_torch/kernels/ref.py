@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels: the lock simulator's and,
 at the end, the language model's (:func:`flash_attention_ref`,
-:func:`rwkv6_scan_ref`, :func:`rmsnorm_ref`).
+:func:`rwkv6_scan_ref`, :func:`mamba_scan_ref`, :func:`rmsnorm_ref`).
 
 These are *definitions*, not fast paths: each function is the eager-tensor
 counterpart of the function of the same name in ``repro/kernels/ref.py``,
@@ -677,9 +677,9 @@ def oracle_update_ref(oracle_id, spun, slept, sws, cnt, ewma, k, sws_max):
 
 # --------------------------------------------------------------------------
 # The language model's kernels (repro/kernels/ref.py: flash_attention_ref,
-# rwkv6_scan_ref, rmsnorm_ref): direct dense math in f32, the plain
-# versions of kernels/flash_attention.py, kernels/rwkv6_scan.py and
-# kernels/rmsnorm.py
+# rwkv6_scan_ref, mamba_scan_ref, rmsnorm_ref): direct dense math in f32,
+# the plain versions of kernels/flash_attention.py, kernels/rwkv6_scan.py,
+# kernels/mamba_scan.py and kernels/rmsnorm.py
 # --------------------------------------------------------------------------
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q: (BH, Sq, hd); k, v: (BKV, Sk, hd), query head b reading kv head
@@ -723,6 +723,29 @@ def rwkv6_scan_ref(r, k, v, w, u, s0=None):
     y = (torch.stack(ys, dim=1) if ys
          else torch.zeros((BH, 0, n), dtype=torch.float32, device=r.device))
     return y, S
+
+
+def mamba_scan_ref(dt, x, Bm, Cm, a):
+    """Sequential definition of the Mamba selective scan, per batch row and
+    channel: ``s <- exp(dt_t a) * s + (dt_t x_t) B_t``, ``y_t = s . C_t``,
+    the state s (d, N) starting at zero.
+
+    dt, x: (B, T, d); Bm, Cm: (B, T, N); a: (d, N), negative.  Returns
+    (y (B, T, d), s_T (B, d, N)), both f32: the reference returns y alone,
+    the final state beside it lets one pass fill the prefill cache."""
+    B, T, d = x.shape
+    N = a.shape[-1]
+    s = torch.zeros((B, d, N), dtype=torch.float32, device=x.device)
+    dt, x, Bm, Cm = (v.float() for v in (dt, x, Bm, Cm))
+    a = a.float()
+    ys = []
+    for t in range(T):
+        da = torch.exp(dt[:, t, :, None] * a)
+        s = s * da + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", s, Cm[:, t]))
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.zeros((B, 0, d), dtype=torch.float32, device=x.device))
+    return y, s
 
 
 def rmsnorm_ref(x, w, eps: float = 1e-6):

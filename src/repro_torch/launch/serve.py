@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --tiny --device cpu --requests 24 --slots 4
 
+Any decoder-only arch of the catalog serves (``--arch rwkv6-1.6b``,
+``--arch jamba-1.5-large-398b --tiny``, ...).
+
 The port of ``repro/launch/serve.py``: the same options, plus ``--device``
 (default: the card; ``cpu`` runs the plain PyTorch versions), ``--seed``
 (random parameters from a ``torch.Generator`` on the device, and the
@@ -47,13 +50,15 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def build(args):
-    """(cfg, engine): the configuration and a :class:`DecodeEngine` over
-    random parameters drawn on the device from ``args.seed``."""
+def build(args, cfg=None):
+    """(cfg, engine): the configuration (``args.arch``'s unless ``cfg`` is
+    given, e.g. a cut of it) and a :class:`DecodeEngine` over random
+    parameters drawn on the device from ``args.seed``."""
     device = resolve_device(args.device)
-    cfg = cbase.get_config(args.arch)
-    if args.tiny:
-        cfg = catalog.tiny(cfg)
+    if cfg is None:
+        cfg = cbase.get_config(args.arch)
+        if args.tiny:
+            cfg = catalog.tiny(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = models.init_params(cfg, gen, device)
     return cfg, DecodeEngine(cfg, params, max_slots=args.slots,

@@ -1,18 +1,20 @@
 """Model zoo of the PyTorch port: the serving API of ``repro.models`` for
-decoder-only stacks of attention and rwkv6 layers (dense or rwkv FFNs).
+decoder-only stacks (dense, MoE, hybrid attention + mamba, rwkv6).
 
     init_params(cfg, generator=None, device=None) -> Transformer (nn.Module)
     prefill(cfg, params, batch)       -> (logits, cache)     [prefill_step]
     decode_step(cfg, params, cache, tokens) -> (logits, cache')  [serve_step]
     init_cache(cfg, batch, max_seq, device=None) -> empty decode cache
     param_count(cfg)                  -> exact N (no allocation)
+    active_param_count(cfg)           -> per-token N (MoE: top_k experts)
 
 ``device=None`` is the card (``RuntimeError`` without one); pass
 ``device="cpu"`` for the plain versions, as the tests do.  ``prefill`` and
 ``decode_step`` run where the parameters are.  On the card, prefill
-attention launches K5, every rwkv6 time-mix K6 (prefill and decode) and
-every RMSNorm K8.  ``loss_fn`` waits for the training slice; configs with
-mamba, MoE or encoder-decoder layers raise ``NotImplementedError``.
+attention launches K5, every rwkv6 time-mix K6 (prefill and decode), every
+mamba mixer K7 in prefill, and every RMSNorm K8 (a mamba mixer's own
+included); MoE experts are plain batched matmuls.  ``loss_fn`` waits for
+the training slice; encoder-decoder configs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,5 +61,18 @@ def param_count(cfg: ModelConfig) -> int:
     return transformer.param_count(cfg)
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Per-token active params: total minus the non-selected experts."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    n_moe_layers = sum(1 for i in range(cfg.num_layers)
+                       if cfg.pattern[i % cfg.layers_per_period].ffn == "moe")
+    per_expert = 3 * cfg.d_model * m.d_ff
+    inactive = n_moe_layers * (m.num_experts - m.top_k) * per_expert
+    return total - inactive
+
+
 __all__ = ["init_params", "prefill", "decode_step", "init_cache",
-           "param_count", "transformer"]
+           "param_count", "active_param_count", "transformer"]

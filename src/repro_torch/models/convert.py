@@ -4,13 +4,14 @@ The reference keeps its parameters as a pytree whose layer leaves are
 stacked over periods (``stack[j][part][name]`` of shape ``(num_periods,
 ...)`` for pattern position ``j``) and its decode cache likewise
 (``{"stack": (per position: {"k", "v"} of shape (periods, B, S, KV, hd),
-or {"att_shift", "ffn_shift", "wkv"} of shape (periods, B, ...)), "len":
-(B,)}``).  The port holds one
+{"att_shift", "ffn_shift", "wkv"} or {"conv", "ssm"} of shape (periods,
+B, ...)), "len": (B,)}``).  The port holds one
 :class:`~repro_torch.models.transformer.Layer` per layer and one cache
-entry per layer, k / v as (B, KV, S, hd), rwkv6 states as the reference
-has them.  These functions map numpy trees (``jax.tree.map(np.asarray,
-tree)`` on the reference side) to and from the port's objects; they import
-nothing of JAX.
+entry per layer, k / v as (B, KV, S, hd), rwkv6 and mamba states as the
+reference has them.  A part's sub-dict (the MoE's ``shared`` expert) is
+flattened into the part as ``<sub>_<name>``.  These functions map numpy
+trees (``jax.tree.map(np.asarray, tree)`` on the reference side) to and
+from the port's objects; they import nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def _numpy(t):
 
 
 #: The parameter groups of a layer, by the reference's names.
-_PARTS = ("attn", "rwkv", "mlp", "rwkvffn")
+_PARTS = ("attn", "mamba", "rwkv", "mlp", "moe", "rwkvffn")
 #: Cache entries the port keeps as (B, KV, S, hd), the reference as (B, S,
 #: KV, hd); every other entry has the reference's layout.
 _KV = ("k", "v")
@@ -57,6 +58,17 @@ def _layer_index(cfg: ModelConfig, l: int):
     return l % P, l // P
 
 
+def _flat(part: dict) -> dict:
+    """A part's leaves, sub-dicts flattened to ``<sub>_<name>``."""
+    out = {}
+    for k, v in part.items():
+        if isinstance(v, dict):
+            out.update({f"{k}_{n}": a for n, a in v.items()})
+        else:
+            out[k] = v
+    return out
+
+
 def params_from_numpy(cfg: ModelConfig, tree, device=None):
     """The reference's parameter pytree (numpy leaves) as the port's
     module, on ``device`` (default: the card)."""
@@ -67,7 +79,7 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
     for l in range(cfg.num_layers):
         j, p = _layer_index(cfg, l)
         st = tree["stack"][j]
-        parts = {name: {k: t(v[p]) for k, v in st[name].items()}
+        parts = {name: {k: t(v[p]) for k, v in _flat(st[name]).items()}
                  for name in _PARTS if name in st}
         layers.append((t(st["norm1"][p]), t(st["norm2"][p]), parts))
     return transformer.build(

@@ -33,8 +33,10 @@ def normal(gen, shape, std, dtype, device):
     tensor of the same shape (for shapes alone, on the meta device)."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device=device)
+    # scaled in place: one f32 tensor alive beside the cast, not two (an
+    # expert stack of jamba is 12.9 GB in f32)
     x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32) * std
+                    dtype=torch.float32).mul_(std)
     return x.to(device=device, dtype=dtype)
 
 

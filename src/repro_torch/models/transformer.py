@@ -1,5 +1,5 @@
 """Decoder-stack assembly: init / prefill / decode for decoder-only stacks
-of attention and rwkv6 layers.
+of attention, rwkv6 and mamba layers with dense, MoE or rwkv FFNs.
 
 The port of the serving half of ``repro/models/transformer.py``.  The
 reference stacks each pattern position's parameters over periods and runs
@@ -8,18 +8,21 @@ as scan data; here the stack is an ``nn.ModuleList`` of :class:`Layer`
 looped in Python, and each layer carries its window and theta as plain
 numbers (:func:`layer_schedules`).
 
-Layers with an ``attention`` or ``rwkv6`` mixer and a ``dense`` or
-``rwkv_ffn`` FFN are ported: mamba, MoE and enc-dec configs raise
-``NotImplementedError`` naming the slice that will port them.  The losses
-wait for the training slice.
+Enc-dec configs raise ``NotImplementedError`` naming the slice that will
+port them.  The losses (and the MoE load-balancing loss) wait for the
+training slice.
 
 Cache: ``{"layers": [one dict per layer], "len": (B,) int32}``.  An
 attention layer's entry is ``{"k", "v"}``, each (B, KV, Smax, hd)
 (:mod:`repro_torch.models.attention`), written in place by decode; an
 rwkv6 layer's is ``{"att_shift" (B, D), "ffn_shift" (B, D), "wkv" (B, H,
-n, n) f32}`` (:mod:`repro_torch.models.rwkv6`), replaced by decode.  As in
-the reference, decode runs the rwkv channel-mix with no shift state (its
-token shift pads with zeros): ``ffn_shift`` is written, never read.
+n, n) f32}`` (:mod:`repro_torch.models.rwkv6`), a mamba layer's ``{"conv"
+(B, d_conv - 1, d_in), "ssm" (B, d_in, d_state) f32}``
+(:mod:`repro_torch.models.mamba`), both replaced by decode.  A mamba
+layer's prefill entry takes ``ssm`` from the scan's own final state (the
+reference runs a second scan for it, ``_mamba_final_state``).  As in the
+reference, decode runs the rwkv channel-mix with no shift state (its token
+shift pads with zeros): ``ffn_shift`` is written, never read.
 """
 
 from __future__ import annotations
@@ -30,33 +33,20 @@ from torch import nn
 from repro_torch.configs.base import LayerSpec, ModelConfig
 
 from . import attention as attn
+from . import mamba as mam
+from . import moe as moe_mod
 from . import rwkv6 as rwkv
 from .layers import (dtype_of, embed, init_embed, init_mlp, mlp, rmsnorm,
                      unembed_logits, zeros)
 
-_MIXERS = ("attention", "rwkv6")
-_FFNS = ("dense", "rwkv_ffn")
-_NOT_YET = {
-    "mamba": "the mamba mixer lands with kernel K7 mamba_scan in the next "
-             "slice of the port (ROADMAP.md S2)",
-    "moe": "MoE FFNs land with kernel K7 and jamba in the next slice of the "
-           "port (ROADMAP.md S2)",
-    "encdec": "encoder-decoder stacks land in a later slice of the port "
-              "(ROADMAP.md S2)",
-}
+_ENCDEC = ("encoder-decoder stacks land in a later slice of the port "
+           "(ROADMAP.md S2)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is an
-    attention or rwkv6 layer with a dense or rwkv FFN, in a decoder-only
-    stack."""
+    """Raise ``NotImplementedError`` for an encoder-decoder config."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_YET['encdec']}")
-    for spec in cfg.pattern:
-        if spec.mixer not in _MIXERS:
-            raise NotImplementedError(f"{cfg.name}: {_NOT_YET[spec.mixer]}")
-        if spec.ffn not in _FFNS:
-            raise NotImplementedError(f"{cfg.name}: {_NOT_YET[spec.ffn]}")
+        raise NotImplementedError(f"{cfg.name}: {_ENCDEC}")
 
 
 def _frozen(tensors: dict) -> nn.ParameterDict:
@@ -66,9 +56,9 @@ def _frozen(tensors: dict) -> nn.ParameterDict:
 
 class Layer(nn.Module):
     """One pre-norm residual layer of ``spec``: its norms, its parts (the
-    reference's names: ``attn`` or ``rwkv`` for the mixer, ``mlp`` or
-    ``rwkvffn`` for the FFN, each a dict of tensors), its window (0 =
-    full) and rope theta."""
+    reference's names: ``attn``, ``mamba`` or ``rwkv`` for the mixer,
+    ``mlp``, ``moe`` or ``rwkvffn`` for the FFN, each a dict of tensors),
+    its window (0 = full) and rope theta."""
 
     def __init__(self, spec: LayerSpec, norm1, norm2, parts: dict,
                  window: int, theta: float):
@@ -141,10 +131,14 @@ def _init_parts(cfg: ModelConfig, spec: LayerSpec, gen, dtype, device):
     if spec.mixer == "attention":
         parts["attn"] = attn.init_attention(gen, cfg.attention, D, dtype,
                                             device)
+    elif spec.mixer == "mamba":
+        parts["mamba"] = mam.init_mamba(gen, cfg.mamba, D, dtype, device)
     else:
         parts["rwkv"] = rwkv.init_rwkv6(gen, cfg.rwkv6, D, dtype, device)
     if spec.ffn == "dense":
         parts["mlp"] = init_mlp(gen, D, cfg.d_ff, dtype, device)
+    elif spec.ffn == "moe":
+        parts["moe"] = moe_mod.init_moe(gen, cfg.moe, D, dtype, device)
     else:
         parts["rwkvffn"] = rwkv.init_rwkv_ffn(gen, D, cfg.d_ff, dtype,
                                               device)
@@ -187,6 +181,8 @@ def _apply_layer(cfg: ModelConfig, layer: Layer, h, positions,
         cache = ({"k": k.transpose(1, 2).contiguous(),
                   "v": v.transpose(1, 2).contiguous()}
                  if collect_cache else {})
+    elif layer.mixer == "mamba":
+        y, cache = mam.mamba_forward(cfg.mamba, layer.mamba, x_in)
     else:
         y, (shift, S) = rwkv.rwkv6_forward(cfg.rwkv6, layer.rwkv, x_in,
                                            return_state=True)
@@ -195,6 +191,8 @@ def _apply_layer(cfg: ModelConfig, layer: Layer, h, positions,
     hn = rmsnorm(h, layer.norm2, cfg.norm_eps)
     if layer.ffn == "dense":
         h = h + mlp(layer.mlp, hn, cfg.act)
+    elif layer.ffn == "moe":
+        h = h + moe_mod.moe_dense(cfg.moe, layer.moe, hn, cfg.act)
     else:
         y, cache["ffn_shift"] = rwkv.rwkv_ffn_forward(layer.rwkvffn, hn,
                                                       return_state=True)
@@ -237,6 +235,9 @@ def _cache_entry(cfg: ModelConfig, spec: LayerSpec, batch: int,
         shape = (batch, a.num_kv_heads, max_seq, a.head_dim)
         return {"k": zeros(shape, dtype, device),
                 "v": zeros(shape, dtype, device)}
+    if spec.mixer == "mamba":
+        return mam.mamba_decode_init(cfg.mamba, cfg.d_model, batch, dtype,
+                                     device)
     e = rwkv.rwkv6_decode_init(cfg.rwkv6, cfg.d_model, batch, dtype, device)
     if spec.ffn != "rwkv_ffn":
         del e["ffn_shift"]
@@ -261,6 +262,8 @@ def _decode_layer(cfg: ModelConfig, layer: Layer, c, h, new_len):
             cfg.attention, layer.attn, hn, c["k"], c["v"], k, v, new_len,
             layer.window, layer.theta, cfg.norm_eps)
         c = dict(c, k=ck, v=cv)
+    elif layer.mixer == "mamba":
+        y, c = mam.mamba_decode_step(cfg.mamba, layer.mamba, hn, c)
     else:
         y, (shift, S) = rwkv.rwkv6_forward(
             cfg.rwkv6, layer.rwkv, hn, shift_state=c["att_shift"],
@@ -270,6 +273,8 @@ def _decode_layer(cfg: ModelConfig, layer: Layer, c, h, new_len):
     hn = rmsnorm(h, layer.norm2, cfg.norm_eps)
     if layer.ffn == "dense":
         h = h + mlp(layer.mlp, hn, cfg.act)
+    elif layer.ffn == "moe":
+        h = h + moe_mod.moe_dense(cfg.moe, layer.moe, hn, cfg.act)
     else:
         # no shift state, as the reference (transformer.py, _decode_layer)
         y, c["ffn_shift"] = rwkv.rwkv_ffn_forward(layer.rwkvffn, hn,

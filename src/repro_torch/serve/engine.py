@@ -15,7 +15,8 @@ handoff is immediate.  Holding standby KV is the resource cost; the
 
 :class:`DecodeEngine` runs the real model on its device (the card unless
 ``device="cpu"``): prefill attention through the flash-attention kernel,
-every rwkv6 time-mix through the WKV-scan kernel, every RMSNorm through the
+every rwkv6 time-mix through the WKV-scan kernel, every mamba mixer's
+prefill through the selective-scan kernel, every RMSNorm through the
 RMSNorm kernel.  It keeps the host-clock seconds of
 each prefill and each step (``prefill_seconds``, ``step_seconds``); each
 call ends in a read of the greedy token(s), so the clock brackets the
@@ -102,7 +103,7 @@ class DecodeEngine:
         """Write a prefilled sequence into ``slot``: every tensor of each
         layer's cache entry, as the reference's padded
         ``dynamic_update_slice`` over the cache tree; k / v at positions
-        ``[0, S)`` and zeros after them, rwkv6 states whole."""
+        ``[0, S)`` and zeros after them, rwkv6 and mamba states whole."""
         assert not self.occupied[slot]
         for big, small in zip(self.cache["layers"], cache1["layers"]):
             for name, t in small.items():

@@ -216,6 +216,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.kernels.ops; "
             "import repro_torch.kernels.flash_attention; "
             "import repro_torch.kernels.rmsnorm; "
+            "import repro_torch.kernels.rwkv6_scan; "
+            "import repro_torch.kernels.mamba_scan; "
+            "import repro_torch.models.mamba; "
+            "import repro_torch.models.moe; "
             "import repro_torch.core.window; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "

@@ -31,9 +31,9 @@ from repro_torch.models.transformer import layer_schedules
 torch.set_num_threads(1)
 
 DENSE = ["llama3.2-1b", "qwen2.5-14b", "stablelm-3b", "gemma3-4b"]
-UNSUPPORTED = {"granite-moe-1b-a400m": "MoE", "qwen3-moe-235b-a22b": "MoE",
-               "jamba-1.5-large-398b": "mamba",
-               "whisper-large-v3": "encoder-decoder"}
+UNSUPPORTED = {"whisper-large-v3": "encoder-decoder"}
+MOE_MAMBA = ["granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
+             "jamba-1.5-large-398b"]
 
 
 def _cfgs(arch, dtype):
@@ -64,7 +64,8 @@ def test_catalogs_equal_field_for_field():
         tbase.get_config("nope")
 
 
-@pytest.mark.parametrize("arch", DENSE + ["chameleon-34b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", DENSE + ["chameleon-34b", "rwkv6-1.6b"]
+                         + MOE_MAMBA)
 def test_param_count_and_schedules_equal(arch):
     j, t = jbase.get_config(arch), tbase.get_config(arch)
     assert tm.param_count(t) == jm.param_count(j)
@@ -72,6 +73,31 @@ def test_param_count_and_schedules_equal(arch):
     win, theta = j_layer_schedules(j)
     assert layer_schedules(t) == (np.asarray(win).reshape(-1).tolist(),
                                   np.asarray(theta).reshape(-1).tolist())
+
+
+@pytest.mark.parametrize("arch", jbase.list_archs())
+def test_active_param_count_equal(arch):
+    j, t = jbase.get_config(arch), tbase.get_config(arch)
+    if j.is_encoder_decoder:
+        with pytest.raises(NotImplementedError, match="encoder-decoder"):
+            tm.active_param_count(t)
+        return
+    assert tm.active_param_count(t) == jm.active_param_count(j)
+    assert tm.active_param_count(tcatalog.tiny(t)) == \
+        jm.active_param_count(jcatalog.tiny(j))
+    if t.moe is None:
+        assert tm.active_param_count(t) == tm.param_count(t)
+
+
+def test_jamba_cut_to_five_layers_counts_as_its_config():
+    """The cut that serves at full width on one card: the first five layers
+    of jamba's period, 24 012 218 368 parameters."""
+    cfg = tbase.get_config("jamba-1.5-large-398b")
+    cut = cfg.replace(num_layers=5, pattern=cfg.pattern[:5])
+    assert tm.param_count(cut) == cut.num_params() == 24_012_218_368
+    assert [(s.mixer, s.ffn) for s in cut.pattern] == [
+        ("mamba", "dense"), ("mamba", "moe"), ("mamba", "dense"),
+        ("mamba", "moe"), ("attention", "dense")]
 
 
 @pytest.mark.parametrize("arch,what", sorted(UNSUPPORTED.items()))
@@ -166,6 +192,18 @@ def test_init_params_draws_from_the_generator():
     d = tm.init_params(cfg, device="cpu")
     e = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert torch.equal(d.embed.tok, e.embed.tok)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normal_scales_in_place_with_the_same_values(dtype):
+    """``layers.normal`` scales its f32 draw in place (one f32 tensor alive
+    beside the cast): the values of ``randn * std`` cast, unchanged."""
+    from repro_torch.models.layers import normal
+    got = normal(torch.Generator().manual_seed(5), (3, 64, 40), 0.37, dtype,
+                 "cpu")
+    want = (torch.randn((3, 64, 40), generator=torch.Generator().manual_seed(
+        5)) * 0.37).to(dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
 
 
 def test_decode_cache_len_tracks_and_full_cache_writes_nothing():
