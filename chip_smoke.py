@@ -6,8 +6,9 @@
 Needs one CUDA card, ``nvcc`` and nothing else: the two kernel libraries
 (the simulator's: the closed and open variants of ``lock_sim_block`` and
 ``lock_transitions_step``, ``lock_sim_step`` and ``oracle_step``; the
-language model's: ``flash_attention``, ``rwkv6_scan``, ``mamba_scan`` and
-``rmsnorm``) are built from ``src/repro_torch/kernels/csrc`` by this run.  Exits non-zero, printing no
+language model's: ``flash_attention`` (its SIMT kernel and its tensor-core
+kernel), ``rwkv6_scan``, ``mamba_scan`` and ``rmsnorm``) are built from
+``src/repro_torch/kernels/csrc`` by this run.  Exits non-zero, printing no
 result line, when there is no CUDA device or when any phase fails.
 
 Phases (each but the first prints one JSON line):
@@ -17,14 +18,21 @@ Phases (each but the first prints one JSON line):
 2. ``build``   nvcc build of both libraries at once (one compiler per
    source): seconds, and ptxas's registers / spills for each instantiation
    (the simulator's closed and open variants at 1, 2 and 4 thread slots per
-   lane; ``flash_attention`` per dtype x head-dim class; ``rwkv6_scan`` per
-   head dim; ``mamba_scan`` per state size; ``rmsnorm`` per dtype)
+   lane; ``flash_attention`` per dtype x head-dim class and its
+   tensor-core kernel per head dim; ``rwkv6_scan`` per head dim;
+   ``mamba_scan`` per state size; ``rmsnorm`` per dtype); fails unless
+   ``cuobjdump -sass`` shows ``HGMMA`` in both instantiations of the
+   tensor-core kernel, whose registers and spills it prints apart
 LM1. ``flash_attention_vs_plain``  ``flash_attention`` against
    ``flash_attention_ref``, both on the card, over dtype {f32, bf16} x hd
-   {16, 64, 80, 128, 256} x Sq = Sk {1, 77, 1024, 2048} x GQA group {1, 4}
-   x causal x window {0, 64} x softcap {0, 30}, plus 300 queries against
-   1024 keys: max|d| <= 2e-5 (f32) / the smaller of 2e-2 and two bf16 ulps
-   of the plain output + 2e-5 (bf16); hd 12 and 264 refused.
+   {16, 64, 80, 128, 256} x Sq = Sk {1, 77, 1024, 2048} x GQA group {1, 4,
+   8} on 8 query heads x causal x window {0, 64} x softcap {0, 30}, plus
+   300 queries against 1024 keys, plus jamba's layer (64 query heads on 8
+   KV heads, hd 128, causal) at S {1, 77, 1024, 2048}: 1016 cases,
+   max|d| <= 2e-5 (f32) / the smaller of 2e-2 and two bf16 ulps of the
+   plain output + 2e-5 (bf16); hd 12 and 264 refused.  Traced:
+   the 220 bf16 cases with hd 64 or 128 must count in ``tc_launches`` and
+   run ``flash_attention_kernel_sm90``, the other 796 the SIMT kernel.
 LM2. ``rmsnorm_vs_plain``  ``rmsnorm`` against ``rmsnorm_ref`` on rows x D
    {1x64, 7x80, 4x2048, 4096x2048, 3x8192}, f32 (rtol 2e-6) and bf16
    (one bf16 ulp), w in x's dtype; D=70, a w in f32 under bf16 x and a
@@ -41,7 +49,8 @@ LM4. ``serve_at_size``  full llama3.2-1b (16 layers, bf16, random weights
    and decode-step ms, the kernels' launches, peak bytes, and the device's
    idle share from a second, traced pass; every request must finish with
    every token in [0, V), every prefill and every decode step launching
-   K8 2 * layers + 1 times and every prefill K5 once per layer.
+   K8 2 * layers + 1 times and every prefill K5 once per layer, each K5
+   launch on the tensor-core kernel (bf16, hd 64).
 LM5. ``rwkv6_scan_vs_plain``  ``rwkv6_scan`` against ``rwkv6_scan_ref``,
    both on the card, f32, n = 64 over B*H {1, 32, 128} x T {1, 7, 64, 65,
    1024, 2048} x s0 {none, random} x w {the model's range exp(-exp(-6 +-
@@ -76,9 +85,10 @@ LM10. ``moe_lm_vs_plain``  granite-moe-1b-a400m at full width cut to two
 LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
    full width, its first 5 layers (4 mamba, 1 attention; 2 MoE, 3 dense
    FFNs; 24 012 218 368 parameters, bf16), the same traffic: every prefill
-   launching K5 once, K7 4 times and K8 15 times (two a layer, the final
-   norm, one inside each mamba mixer), every decode step K8 15 times and
-   K7 never; the peak bytes of ``init_params`` and of the drain.
+   launching K5 once (on the tensor cores: bf16, hd 128), K7 4 times and
+   K8 15 times (two a layer, the final norm, one inside each mamba mixer),
+   every decode step K8 15 times and K7 never; the peak bytes of
+   ``init_params`` and of the drain.
 3. ``kernel_vs_plain``  ``lock_sim_block`` against ``lock_sim_block_ref``,
    both on the card, chained from the engine's initial state for 256 steps
    over the closed conformance matrix (every policy id x workload x fault,
@@ -134,9 +144,10 @@ LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
    version's time at the same shape, the roofline bound, and the launches
    its path made (the block kernel in the sweeps, the step pair in the
    scan rollouts, ``oracle_step`` on no path: 0); ``flash_attention`` at
-   one prefill layer of llama3.2-1b and ``rmsnorm`` at a prefill and a
-   decode shape, with the PyTorch call that computes the same function
-   (``library_ms``: ``scaled_dot_product_attention``, ``rms_norm``) and
+   one prefill layer of llama3.2-1b and of jamba (hd 64 and 128, both on
+   the tensor cores, each with its own bound and SDPA time) and
+   ``rmsnorm`` at a prefill and a decode shape, with the PyTorch call that
+   computes the same function (``library_ms``: ``scaled_dot_product_attention``, ``rms_norm``) and
    the launches of ``serve_at_size``; ``rwkv6_scan`` at one prefill layer
    (B*H = 32, T = 1024) and one decode step (B*H = 128, T = 1) of
    rwkv6-1.6b, with no library call (none computes the WKV recurrence)
@@ -179,6 +190,8 @@ from repro_torch.kernels import build as KB  # noqa: E402
 from repro_torch.kernels import lm_lib  # noqa: E402
 from repro_torch.kernels import lock_sim as K  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    LIMIT as FLASH_LIMIT, bf16_ulp, excess as flash_excess, tensor_core_path)
 from repro_torch.kernels.flash_attention import \
     flash_attention as LMA  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan as LMM  # noqa: E402
@@ -1110,7 +1123,6 @@ FLASH_HDS = (16, 64, 80, 128, 256)
 FLASH_SEQS = (1, 77, 1024, 2048)
 #: Query heads per KV head: MHA, llama3.2-1b's 4, jamba's 8.
 FLASH_GROUPS = (1, 4, 8)
-FLASH_LIMIT = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: K8's (rows, D): odd ones, llama3.2-1b's at decode (4 slots) and
 #: prefill, and jamba's: D 8192 for its layer norms, 16384 for the norm
 #: inside each mamba mixer, at decode and at a 1024-token prefill.
@@ -1160,20 +1172,6 @@ JAMBA_SCAN_FLOOR = 1e-6
 MOE_MARGIN = 1e-5
 
 
-def flash_excess(got, want):
-    """max over the outputs of |got - want| / limit: the limit is
-    FLASH_LIMIT in f32; in bf16 it is the smaller of FLASH_LIMIT and two
-    bf16 ulps of the plain output plus the f32 limit (the f32 math's own
-    error, which the final rounding can turn into one ulp), so that it
-    shrinks with the output.  At most 1 where the kernel agrees."""
-    d = (got.float() - want.float()).abs()
-    lim = FLASH_LIMIT[got.dtype]
-    if got.dtype == torch.bfloat16:
-        lim = torch.clamp(2.0 * bf16_ulp(want) + FLASH_LIMIT[torch.float32],
-                          max=lim)
-    return float((d / lim).max())
-
-
 def flash_cases():
     """(dtype, hd, Sq, Sk, BH, group, causal, window, softcap): the matrix
     dtype x hd x Sq = Sk x group x causal x window x softcap on 8 query
@@ -1196,34 +1194,52 @@ def flash_cases():
 
 
 def phase_flash_attention_vs_plain():
-    """K5 against flash_attention_ref, both on the card."""
+    """K5 against flash_attention_ref, both on the card, traced: every bf16
+    case with hd 64 or 128 must count in ``tc_launches`` and run the
+    tensor-core kernel, every other case the SIMT kernel (the kernels'
+    names in the trace)."""
+    from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(0)
     worst = {str(d).split(".")[1]: 0.0 for d in FLASH_LIMIT}
     excess = dict(worst)
-    n = 0
-    before = LMA.launches
-    for dtype, hd, Sq, Sk, BH, group, causal, window, softcap in \
-            flash_cases():
-        q = torch.randn((BH, Sq, hd), generator=gen, device=DEV).to(dtype)
-        k, v = (torch.randn((BH // group, Sk, hd), generator=gen,
-                            device=DEV).to(dtype) for _ in range(2))
-        kw = dict(causal=causal, window=window, softcap=softcap)
-        got = LMA(q, k, v, **kw)
-        want = ref.flash_attention_ref(q, k, v, **kw)
-        where = (f"flash_attention {dtype} hd={hd} Sq={Sq} Sk={Sk} "
-                 f"BH={BH} group={group} {kw}")
-        if got.shape != want.shape or got.dtype != dtype:
-            fail(f"{where}: {got.shape} {got.dtype}")
-        err = float((got.float() - want.float()).abs().max())
-        over = flash_excess(got, want)
-        if not torch.isfinite(got).all() or not over <= 1.0:
-            fail(f"{where}: max|d| {err}, {over} x its limit")
-        name = str(dtype).split(".")[1]
-        worst[name] = max(worst[name], err)
-        excess[name] = max(excess[name], over)
-        n += 1
-    torch.cuda.synchronize()
+    n = n_tc = 0
+    before, tc_before = LMA.launches, LMA.tc_launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for dtype, hd, Sq, Sk, BH, group, causal, window, softcap in \
+                flash_cases():
+            q = torch.randn((BH, Sq, hd), generator=gen,
+                            device=DEV).to(dtype)
+            k, v = (torch.randn((BH // group, Sk, hd), generator=gen,
+                                device=DEV).to(dtype) for _ in range(2))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            tc = LMA.tc_launches
+            got = LMA(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            where = (f"flash_attention {dtype} hd={hd} Sq={Sq} Sk={Sk} "
+                     f"BH={BH} group={group} {kw}")
+            if LMA.tc_launches - tc != tensor_core_path(dtype, hd):
+                fail(f"{where}: {LMA.tc_launches - tc} tensor-core "
+                     f"launches")
+            if got.shape != want.shape or got.dtype != dtype:
+                fail(f"{where}: {got.shape} {got.dtype}")
+            err = float((got.float() - want.float()).abs().max())
+            over = flash_excess(got, want)
+            if not torch.isfinite(got).all() or not over <= 1.0:
+                fail(f"{where}: max|d| {err}, {over} x its limit")
+            name = str(dtype).split(".")[1]
+            worst[name] = max(worst[name], err)
+            excess[name] = max(excess[name], over)
+            n += 1
+            n_tc += tensor_core_path(dtype, hd)
+        torch.cuda.synchronize()
+    # the device's own account of which kernel each launch ran
+    ran = {"tensor_core": 0, "simt": 0}
+    for e in prof.key_averages():
+        if "flash_attention_kernel_sm90" in e.key:
+            ran["tensor_core"] += e.count
+        elif "flash_attention_kernel" in e.key:
+            ran["simt"] += e.count
     refused = []
     for hd in (12, 264):
         q = torch.zeros((4, 8, hd), device=DEV, dtype=torch.bfloat16)
@@ -1234,21 +1250,20 @@ def phase_flash_attention_vs_plain():
     if refused != [12, 264]:
         fail(f"flash_attention: hd 12 / 264 not refused ({refused})")
     launches = LMA.launches - before
-    if launches != n:
-        fail(f"flash_attention: {launches} launches for {n} cases")
+    tc_launches = LMA.tc_launches - tc_before
+    if (launches != n or tc_launches != n_tc
+            or ran != {"tensor_core": n_tc, "simt": n - n_tc}):
+        fail(f"flash_attention: {launches} launches ({tc_launches} "
+             f"tensor-core; the trace: {ran}) for {n} cases ({n_tc} bf16 "
+             f"with hd 64 or 128)")
     emit({"phase": "flash_attention_vs_plain", "cases": n,
+          "tensor_core_cases": n_tc, "kernels_traced": ran,
           "max_abs_err": worst, "limit": {str(d).split(".")[1]: l
                                           for d, l in FLASH_LIMIT.items()},
           "bf16_limit": "min(2e-2, 2 bf16 ulps of the plain output + 2e-5)",
           "max_err_over_limit": excess,
           "refused_hd": refused, "seconds": time.perf_counter() - t0})
     return max(worst.values())
-
-
-def bf16_ulp(x):
-    """One bf16 ulp at each value of x (f32), 2^-133 at 0."""
-    _, e = torch.frexp(x.float())
-    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
 def phase_rmsnorm_vs_plain():
@@ -1353,22 +1368,26 @@ def compare_lm(phase, cfg, cpu_model, gpu_model):
     decode steps of ``cfg`` on the CPU and on the card, the card fed the
     CPU's greedy tokens: logits within 1e-3, greedy tokens equal where the
     CPU's top-2 margin exceeds 1e-2, K8 launched :func:`k8_per_forward`
-    times a forward and K7 once per mamba layer in the prefill.  Returns what it read and the last caches of the CPU and the
-    card."""
+    times a forward, K7 once per mamba layer in the prefill and every K5
+    launch on the tensor cores where :func:`tc_attention` says so.  Returns
+    what it read and the last caches of the CPU and the card."""
     rng = np.random.default_rng(0)
     prompt = [int(t) for t in rng.integers(2, cfg.vocab_size - 1,
                                            LM_VS_PLAIN_PROMPT)]
     cpu, forced, cpu_cache = lm_run(cfg, cpu_model, "cpu", prompt,
                                     LM_VS_PLAIN_STEPS)
-    k5, k6, k7, k8 = (LMA.launches, LMW.launches, LMM.launches,
-                      LMN.launches)
+    k5, k5_tc, k6, k7, k8 = (LMA.launches, LMA.tc_launches, LMW.launches,
+                             LMM.launches, LMN.launches)
     gpu, _, gpu_cache = lm_run(cfg, gpu_model, DEV, prompt,
                                LM_VS_PLAIN_STEPS, forced)
-    k5, k6, k7, k8 = (LMA.launches - k5, LMW.launches - k6,
-                      LMM.launches - k7, LMN.launches - k8)
+    k5, k5_tc, k6, k7, k8 = (LMA.launches - k5, LMA.tc_launches - k5_tc,
+                             LMW.launches - k6, LMM.launches - k7,
+                             LMN.launches - k8)
     if (k8 != k8_per_forward(cfg) * (LM_VS_PLAIN_STEPS + 1)
-            or k7 != mixer_counts(cfg)["mamba"]):
-        fail(f"{phase}: {k7} K7 / {k8} K8 launches on the card")
+            or k7 != mixer_counts(cfg)["mamba"]
+            or k5_tc != (k5 if tc_attention(cfg) else 0)):
+        fail(f"{phase}: {k5_tc} of {k5} K5 on the tensor cores / {k7} K7 / "
+             f"{k8} K8 launches on the card")
     worst, clear, agree = 0.0, 0, 0
     for i, (c, g) in enumerate(zip(cpu, gpu)):
         if not torch.isfinite(g).all():
@@ -1388,7 +1407,8 @@ def compare_lm(phase, cfg, cpu_model, gpu_model):
             "prompt": LM_VS_PLAIN_PROMPT, "decode_steps": LM_VS_PLAIN_STEPS,
             "logits_max_abs_err": worst, "limit": 1e-3,
             "steps_compared": len(cpu), "steps_with_clear_margin": clear,
-            "greedy_equal": agree, "k5_launches": k5, "k6_launches": k6,
+            "greedy_equal": agree, "k5_launches": k5,
+            "k5_tc_launches": k5_tc, "k6_launches": k6,
             "k7_launches": k7, "k8_launches": k8}, cpu_cache, gpu_cache
 
 
@@ -1397,6 +1417,12 @@ def mixer_counts(cfg):
     from repro_torch.models.transformer import layer_spec
     mixers = [layer_spec(cfg, l).mixer for l in range(cfg.num_layers)]
     return {m: mixers.count(m) for m in ("attention", "rwkv6", "mamba")}
+
+
+def tc_attention(cfg):
+    """Whether ``cfg``'s attention layers run K5 on the tensor cores."""
+    return cfg.attention is not None and tensor_core_path(
+        getattr(torch, cfg.dtype), cfg.attention.head_dim)
 
 
 def k8_per_forward(cfg):
@@ -1452,13 +1478,15 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path, counted
-    LMA.launches = LMW.launches = LMM.launches = LMN.launches = 0
+    LMA.launches = LMA.tc_launches = 0
+    LMW.launches = LMM.launches = LMN.launches = 0
     try:
         out = serve.run(args, cfg, engine)
         torch.cuda.synchronize()
     finally:
         del engine.prefill      # the class's method again, and no cycle
     k5, k6, k7, k8 = LMA.launches, LMW.launches, LMM.launches, LMN.launches
+    k5_tc = LMA.tc_launches
     k6_pre, k7_pre, k8_pre = (at_prefill[k] for k in ("k6", "k7", "k8"))
     peak = torch.cuda.max_memory_allocated()
     reqs, s = out["requests"], out["summary"]
@@ -1474,12 +1502,14 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
     per_forward = k8_per_forward(cfg)
     if (len(prefill_ms) != args.requests
             or k5 != n["attention"] * args.requests
+            or k5_tc != (k5 if tc_attention(cfg) else 0)
             or k6_pre != n["rwkv6"] * args.requests
             or k6 - k6_pre != n["rwkv6"] * len(step_ms)
             or k7_pre != n["mamba"] * args.requests or k7 != k7_pre
             or k8_pre != per_forward * args.requests
             or k8 - k8_pre != per_forward * len(step_ms)):
-        fail(f"{phase}: {k5} K5 / {k6_pre} + {k6 - k6_pre} K6 / {k7_pre} + "
+        fail(f"{phase}: {k5} K5 ({k5_tc} tensor-core) / {k6_pre} + "
+             f"{k6 - k6_pre} K6 / {k7_pre} + "
              f"{k7 - k7_pre} K7 / {k8_pre} + {k8 - k8_pre} K8 launches for "
              f"{len(prefill_ms)} prefills and {len(step_ms)} decode steps")
     seconds = out["seconds"]
@@ -1502,7 +1532,7 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
           "max_prefill_ms": float(np.max(prefill_ms)),
           "median_decode_step_ms": float(np.median(step_ms)),
           "decode_steps": len(step_ms),
-          "k5_launches": k5, "k6_launches": k6,
+          "k5_launches": k5, "k5_tc_launches": k5_tc, "k6_launches": k6,
           "k6_launches_prefill": k6_pre, "k6_launches_decode": k6 - k6_pre,
           "k7_launches": k7, "k7_launches_prefill": k7_pre,
           "k7_launches_decode": k7 - k7_pre,
@@ -1522,7 +1552,8 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
           "k8_device_seconds": k8_s if traced else None,
           "device_idle_share": 1.0 - busy / seconds if traced else None,
           "phase_seconds": time.perf_counter() - t0})
-    return {"k5": k5, "k6_prefill": k6_pre, "k6_decode": k6 - k6_pre,
+    return {"k5": k5, "k5_tc": k5_tc,
+            "k6_prefill": k6_pre, "k6_decode": k6 - k6_pre,
             "k7_prefill": k7_pre, "k7_decode": k7 - k7_pre,
             "k8_prefill": k8_pre, "k8_decode": k8 - k8_pre}
 
@@ -1929,14 +1960,13 @@ def mamba_entries(serve_launches, scan_err):
              "path": "serve_jamba_at_size prefill"}]
 
 
-def lm_entries(serve_launches, flash_err, rms_err):
-    """K5 at one prefill layer of llama3.2-1b (Sq = Sk = 1024, B*H = 32,
-    B*KV = 8, hd 64, bf16, causal) and K8 at 1024 x 2048 (prefill) and
-    4 x 2048 (a decode step of four slots), bf16: device ms, with-host ms,
-    plain ms, the library call's ms, the bound."""
+def flash_entry(name, path, launches, tc_launches, flash_err, BH, BKV, S,
+                hd, gen):
+    """K5 at one causal bf16 prefill layer (Sq = Sk = S): device ms,
+    with-host ms, plain ms, SDPA's ms (``enable_gqa``, ``is_causal``), the
+    bound: QK^T and PV over the causal pairs at the dense bf16 tensor-core
+    peak against q, k, v and the output moved once."""
     import torch.nn.functional as F
-    gen = torch.Generator(device=DEV).manual_seed(2)
-    BH, BKV, S, hd = 32, 8, 1024, 64
     bf = torch.bfloat16
     q = torch.randn((BH, S, hd), generator=gen, device=DEV).to(bf)
     k, v = (torch.randn((BKV, S, hd), generator=gen, device=DEV).to(bf)
@@ -1950,18 +1980,18 @@ def lm_entries(serve_launches, flash_err, rms_err):
     err = float((got.float() - want.float()).abs().max())
     over = flash_excess(got, want)
     if not torch.isfinite(got).all() or not over <= 1.0:
-        fail(f"flash_attention at the prefill layer: max|d| {err}, {over} "
-             f"x its limit")
+        fail(f"flash_attention at {path}: max|d| {err}, {over} x its limit")
     lib_err = float((library()[0].float() - want.float()).abs().max())
     ops = 4 * BH * hd * (S * (S + 1) // 2)     # QK^T and PV, causal pairs
     n_bytes = nbytes((q, k, v)) + q.numel() * q.element_size()
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
-    src = "src/repro_torch/kernels/csrc/"
-    out = [{"name": "flash_attention", "route": "cuda",
-            "source": src + "flash_attention.cu",
+    source = ("flash_attention_sm90.cu" if tensor_core_path(bf, hd)
+              else "flash_attention.cu")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + source,
             "replaces": "src/repro/kernels/flash_attention.py:140",
-            "launches": serve_launches["k5"],
+            "launches": launches, "tc_launches": tc_launches,
             "max_abs_err": max(flash_err, err),
             "ms": median_ms(kern, 20, hide_host=True),
             "with_host_ms": median_ms(kern, 20),
@@ -1972,7 +2002,25 @@ def lm_entries(serve_launches, flash_err, rms_err):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes_ms": bytes_ms, "operations_ms": ops_ms,
             "shape": [BH, BKV, S, S, hd], "dtype": "bfloat16",
-            "causal": True}]
+            "causal": True, "path": path}
+
+
+def lm_entries(serve_launches, jamba_launches, flash_err, rms_err):
+    """K5 at one prefill layer of llama3.2-1b (Sq = Sk = 1024, B*H = 32,
+    B*KV = 8, hd 64) and of jamba (B*H = 64, B*KV = 8, hd 128), bf16,
+    causal; K8 at 1024 x 2048 (prefill) and 4 x 2048 (a decode step of
+    four slots), bf16: device ms, with-host ms, plain ms, the library
+    call's ms, the bound."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    bf = torch.bfloat16
+    out = [flash_entry("flash_attention", "serve_at_size prefill",
+                       serve_launches["k5"], serve_launches["k5_tc"],
+                       flash_err, 32, 8, 1024, 64, gen),
+           flash_entry("flash_attention_jamba", "serve_jamba_at_size prefill",
+                       jamba_launches["k5"], jamba_launches["k5_tc"],
+                       flash_err, 64, 8, 1024, 128, gen)]
+    src = "src/repro_torch/kernels/csrc/"
     for rows, launches, tag in ((1024, serve_launches["k8_prefill"],
                                  "prefill"),
                                 (4, serve_launches["k8_decode"], "decode")):
@@ -2024,6 +2072,33 @@ STREAM_MEM_MB = 1.5
 STREAM_TARGET_CS = 20
 
 
+def tensor_core_sass(lm_build):
+    """K5's tensor-core kernel in the LM library: per instantiation
+    (``flash_attention_kernel_sm90<64>``, ``<128>``), its ``HGMMA``
+    instructions in ``cuobjdump -sass`` and ptxas's registers and spills.
+    Fails unless both instantiations are there and each issues HGMMA."""
+    tool = os.path.join(os.path.dirname(KB.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lm_build.path)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        if "flash_attention_kernel_sm90" in name:
+            out[name] = {"hgmma": chunk.count("HGMMA")}
+    # ptxas -v: "Compiling entry function '<name>'", then its stack,
+    # spills and registers
+    name = None
+    for ln in lm_build.log.splitlines():
+        if "entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else None
+        elif name in out and ("registers" in ln or "spill" in ln):
+            out[name].setdefault("ptxas", []).append(ln.strip())
+    if len(out) != 2 or not all(v["hgmma"] > 0 for v in out.values()):
+        fail(f"build: flash_attention_kernel_sm90 without HGMMA in its SASS: "
+             f"{out}")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -2036,8 +2111,9 @@ def main():
     sim_build, lm_build = KB.build_libraries([K.LIBRARY, lm_lib.LIBRARY])
     # one "Compiling entry function" line names each instantiation
     # (lock_sim_block_kernel<NS, OPEN>, flash_attention_kernel<T, NJ>,
-    # rwkv6_scan_kernel<N>, mamba_scan_kernel<N>, rmsnorm_kernel<T>), its
-    # registers and spills follow
+    # flash_attention_kernel_sm90<HD>, rwkv6_scan_kernel<N>,
+    # mamba_scan_kernel<N>, rmsnorm_kernel<T>), its registers and spills
+    # follow
     ptxas = lambda b: [ln.strip() for ln in b.log.splitlines()
                        if "entry function" in ln or "registers" in ln
                        or "spill" in ln]
@@ -2048,6 +2124,7 @@ def main():
           "ptxas": ptxas(sim_build),
           "lm_library": os.path.relpath(lm_build.path, HERE),
           "lm_ptxas": ptxas(lm_build),
+          "k5_tensor_core_sass": tensor_core_sass(lm_build),
           # the pair whose device math libraries must agree for phase 3
           "nvcc": KB.nvcc_release(), "torch": torch.__version__,
           "torch_cuda": torch.version.cuda})
@@ -2078,7 +2155,8 @@ def main():
                + open_entries(arrs, ares, open_launches, scan_launches,
                               open_abs_err, step_abs_err)
                + [oracle_entry(oracle_args)]
-               + lm_entries(serve_launches, flash_err, rms_err)
+               + lm_entries(serve_launches, jamba_launches, flash_err,
+                            rms_err)
                + rwkv6_entries(rwkv6_launches, scan_err)
                + mamba_entries(jamba_launches, mamba_err))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -1,4 +1,5 @@
-// flash_attention — blockwise online-softmax attention on Hopper.
+// flash_attention — blockwise online-softmax attention on Hopper: the C
+// entry point of K5 and its SIMT kernel.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention / _kernel): q (BH, Sq, hd), k and v (BKV, Sk, hd),
@@ -9,6 +10,13 @@
 // is wiped by the next block's corr = exp(-1e30 - m) = 0), k-blocks fully
 // masked for the whole q-block skipped, running max / sum / accumulator in
 // f32, output in q's dtype.  Positions start at 0 for q and k.
+//
+// Two kernels, chosen by the operands in flash_attention_launch below
+// (kernels/flash_attention.py: tensor_core_path states the same rule):
+// bf16 with hd 64 or 128 goes to flash_attention_sm90.cu (TMA, wgmma);
+// f32 of every hd, whose 2e-5 limit rules out TF32, and bf16 of every
+// other hd (gemma3's 256, stablelm's 80) stay on the SIMT kernel of this
+// file.
 //
 // Design.  One CTA of 256 threads per (bh, 64-row q-block); it loops over
 // 64-row k-blocks.  q, k and v tiles live in shared memory as f32 (the
@@ -21,13 +29,12 @@
 // output columns tx + 16 j (j < NJ, NJ = ceil(hd / 16)) of its four rows.
 // hd is any multiple of 8 up to 256; NJ is a template parameter (4, 8, 16).
 //
-// What bounds it.  At the prefill shape of llama3.2-1b (Sq = Sk = 1024,
-// BH = 32, BKV = 8, hd = 64, bf16) the function moves 10 MB and does
-// 4.3 GFLOP of causal products: on the H100 that is 3 us of memory against
-// 4.4 us at the dense bf16 tensor-core peak, so the floor is the tensor
-// cores.  This kernel does its products on the f32 SIMT pipes out of shared
-// memory (no wgmma, no TMA): it is right and simple, and an order of
-// magnitude or two above that floor (PERF.md).
+// What bounds it.  The products: at a 1024-token causal prefill with 32
+// query heads of hd 64 they are 4.3 GFLOP, 64 us on the f32 SIMT pipes
+// (67 TFLOP/s) that this kernel uses, out of shared memory, with no TMA
+// and synchronous tile loads.  It serves the operands the tensor-core
+// kernel does not take, right and simple; a 3xTF32 path for f32 and
+// wider head dims on the tensor cores are later work (ROADMAP).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -261,6 +268,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int BH,
 
 }  // namespace
 
+extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
+                                           const void* v, void* o, int BH,
+                                           int BKV, int Sq, int Sk, int hd,
+                                           int causal, int window,
+                                           float softcap, float scale,
+                                           cudaStream_t stream);
+
 // dtype: 0 float32, 1 bfloat16.  The wrapper has checked shapes (hd a
 // multiple of 8 in [8, 256], BH % BKV == 0, BH <= 65535), dtypes,
 // contiguity and 16-byte alignment.  Returns the CUDA error of the launch.
@@ -271,6 +285,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int dtype, cudaStream_t stream) {
   if (hd < 8 || hd > 256 || hd % 8 != 0 || BKV <= 0 || BH % BKV != 0)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && (hd == 64 || hd == 128))
+    return flash_attention_sm90_launch(q, k, v, o, BH, BKV, Sq, Sk, hd,
+                                       causal, window, softcap, scale,
+                                       stream);
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, BH, BKV, Sq, Sk, hd, causal, window,
                            softcap, scale, stream);

@@ -3,8 +3,12 @@
 The port of the Pallas TPU kernel ``repro/kernels/flash_attention.py``:
 blockwise online-softmax attention with causal masking, a sliding window,
 GQA (query head ``b`` reads kv head ``b // (BH // BKV)``) and a logit
-softcap, f32 accumulation (``csrc/flash_attention.cu``; plain version
-:func:`repro_torch.kernels.ref.flash_attention_ref`).
+softcap, f32 accumulation (plain version
+:func:`repro_torch.kernels.ref.flash_attention_ref`).  Two kernels behind
+one C entry point, chosen by the operands (:func:`tensor_core_path`):
+bf16 with hd 64 or 128 runs on the tensor cores
+(``csrc/flash_attention_sm90.cu``: TMA, ``wgmma``), everything else on the
+SIMT kernel (``csrc/flash_attention.cu``).
 
 Layout: q (BH, Sq, hd), k / v (BKV, Sk, hd); :func:`repro_torch.kernels.ops.attention`
 maps the model's (B, S, H, hd) tensors to it and back.
@@ -20,6 +24,41 @@ from . import lm_lib, ref
 
 #: Largest head dim the kernel takes (a multiple of 8 up to it).
 MAX_HEAD_DIM = 256
+#: Head dims of the tensor-core path, bf16 only: llama3.2-1b's 64 and
+#: jamba's 128.
+TC_HEAD_DIMS = (64, 128)
+#: K5 against its plain version: max|d| within this in f32; in bf16 this
+#: caps the limit of :func:`excess`.
+LIMIT = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def tensor_core_path(dtype, hd) -> bool:
+    """Whether :func:`flash_attention` runs operands of ``dtype`` and head
+    dim ``hd`` on the tensor-core kernel: bf16 with hd in
+    :data:`TC_HEAD_DIMS`.  Everything else runs on the SIMT kernel; f32
+    stays there because its 2e-5 limit rules out TF32.  The C entry point
+    ``flash_attention_launch`` makes the same choice."""
+    return dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each value of x (f32), 2^-133 at 0."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def excess(got, want):
+    """max over the outputs of |got - want| / limit: the limit is
+    :data:`LIMIT` in f32; in bf16 it is the smaller of :data:`LIMIT` and two
+    bf16 ulps of the plain output plus the f32 limit (the f32 math's own
+    error, which the final rounding can turn into one ulp), so that it
+    shrinks with the output.  At most 1 where the kernel agrees."""
+    d = (got.float() - want.float()).abs()
+    lim = LIMIT[got.dtype]
+    if got.dtype == torch.bfloat16:
+        lim = torch.clamp(2.0 * bf16_ulp(want) + LIMIT[torch.float32],
+                          max=lim)
+    return float((d / lim).max())
 
 
 def check_operands(q, k, v):
@@ -61,8 +100,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     dtype.
 
     CPU tensors go through the plain version.  Other tensors are checked
-    (:func:`check_operands`) and, on CUDA, launch the kernel on the current
-    stream, adding one to ``flash_attention.launches``; there is no
+    (:func:`check_operands`) and, on CUDA, launch one of the two kernels on
+    the current stream, adding one to ``flash_attention.launches`` and, on
+    the tensor-core path, to ``flash_attention.tc_launches``; there is no
     fallback."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
@@ -81,7 +121,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                   float(softcap), 1.0 / math.sqrt(hd),
                   lm_lib.DTYPE_CODE[q.dtype])
     flash_attention.launches += 1
+    flash_attention.tc_launches += int(tensor_core_path(q.dtype, hd))
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0

@@ -1,7 +1,9 @@
-"""The language model's kernel library: ``csrc/flash_attention.cu`` (K5),
-``csrc/rwkv6_scan.cu`` (K6), ``csrc/mamba_scan.cu`` (K7) and
-``csrc/rmsnorm.cu`` (K8), built into ``build/repro_torch/liblm_<hash>.so``
-at the first launch of any of their wrappers
+"""The language model's kernel library: ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_sm90.cu`` (K5's SIMT and tensor-core kernels behind
+one entry point), ``csrc/rwkv6_scan.cu`` (K6), ``csrc/mamba_scan.cu`` (K7)
+and ``csrc/rmsnorm.cu`` (K8), built into
+``build/repro_torch/liblm_<hash>.so`` at the first launch of any of their
+wrappers
 (:mod:`repro_torch.kernels.flash_attention`,
 :mod:`repro_torch.kernels.rwkv6_scan`, :mod:`repro_torch.kernels.mamba_scan`,
 :mod:`repro_torch.kernels.rmsnorm`) by :mod:`repro_torch.kernels.build`.
@@ -16,8 +18,8 @@ import torch
 
 from . import build
 
-SOURCES = ("flash_attention.cu", "rwkv6_scan.cu", "mamba_scan.cu",
-           "rmsnorm.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_sm90.cu", "rwkv6_scan.cu",
+           "mamba_scan.cu", "rmsnorm.cu")
 #: Compiler flags of the sources.  FMA contraction stays on: the kernels
 #: are held to their plain versions by a tolerance, not bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

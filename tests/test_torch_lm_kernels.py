@@ -174,14 +174,30 @@ def test_rmsnorm_wrapper_refuses(x, w, err, match):
         rmsnorm(x, w)
 
 
+#: The TPU kernel each source of the LM library replaces.
+LM_REPLACES = {"flash_attention.cu": "repro/kernels/flash_attention.py",
+               "flash_attention_sm90.cu":
+                   "src/repro/kernels/flash_attention.py:140",
+               "rwkv6_scan.cu": "repro/kernels/rwkv6_scan.py",
+               "mamba_scan.cu": "repro/kernels/mamba_scan.py",
+               "rmsnorm.cu": "repro/kernels/rmsnorm.py"}
+
+
 def test_lm_library_sources_and_flags():
-    """K5 and K8 are their own library beside the simulator's: each source
-    defines the C entry point its wrapper loads; sm_90a, no fast math."""
+    """The LM kernels are their own library beside the simulator's, K5's
+    tensor-core kernel among them: each source defines its C entry point
+    and names, in its header, the TPU kernel it replaces; sm_90a, no fast
+    math."""
+    assert set(lm_lib.SOURCES) == set(LM_REPLACES)
     for name in lm_lib.SOURCES:
         src = (build.CSRC / name).read_text()
         entry = name.removesuffix(".cu") + "_launch"
         assert re.search(r'extern "C" int ' + entry + r"\(", src), name
         assert "cudaGetLastError" in src
+        header = src[:src.index("#include")]
+        assert "Replaces the Pallas TPU kernel" in header.replace(
+            "\n// ", " "), name
+        assert LM_REPLACES[name] in header, name
     assert "arch=compute_90a,code=sm_90a" in lm_lib.NVCC_FLAGS
     assert not any("fast" in f for f in lm_lib.NVCC_FLAGS)
     assert lm_lib.LIBRARY.path().name.startswith("liblm_")
