@@ -22,7 +22,13 @@ Phases (each but the first prints one JSON line):
    tensor-core kernel per head dim; ``rwkv6_scan`` per head dim;
    ``mamba_scan`` per state size; ``rmsnorm`` per dtype); fails unless
    ``cuobjdump -sass`` shows ``HGMMA`` in both instantiations of the
-   tensor-core kernel, whose registers and spills it prints apart
+   tensor-core kernel, whose registers and spills it prints apart;
+   ``k1_sass``: per ``lock_sim_block_kernel<NS, OPEN>`` instantiation its
+   static SASS counts (total, VOTE, REDUX, SHFL, MUFU, CALL, BSSY, BRA,
+   LDS, STS, integer, the most frequent opcodes), its registers and
+   spills, and the blocks and warps resident on an SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); fails if an
+   instantiation is missing
 LM1. ``flash_attention_vs_plain``  ``flash_attention`` against
    ``flash_attention_ref``, both on the card, over dtype {f32, bf16} x hd
    {16, 64, 80, 128, 256} x Sq = Sk {1, 77, 1024, 2048} x GQA group {1, 4,
@@ -141,7 +147,12 @@ LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
 12. ``kernels`` the contract line: per kernel and variant, the time per
    launch at its largest main-path shape (CUDA events, median, with the
    card kept busy while the host enqueues the launch), the plain
-   version's time at the same shape, the roofline bound, and the launches
+   version's time at the same shape, the roofline bound (the simulator
+   kernels' operations over 128 single f32 / i32 lane operations a clock
+   and SM, as they issue no FMA; the LM kernels' over their own peaks),
+   for the block kernel ``rows_per_sm_ms`` (its device ms at C = SMs x w
+   rows for w = 4 ... 40 warps an SM: flat up to the occupancy limit means
+   latency-bound, growing from small w issue-bound), and the launches
    its path made (the block kernel in the sweeps, the step pair in the
    scan rollouts, ``oracle_step`` on no path: 0); ``flash_attention`` at
    one prefill layer of llama3.2-1b and of jamba (hd 64 and 128, both on
@@ -216,6 +227,11 @@ RTOL_FIELDS = {}
 # H100 SXM data-sheet peaks used for the bound (dense, 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: Single f32 / i32 lane operations a second outside the tensor cores: 128
+#: lanes a clock per SM x 132 SMs x 1.98 GHz.  The simulator kernels issue
+#: no FMA (-fmad=false), so their operations run at this rate, half the
+#: data sheet's 67 TFLOP/s, which counts an FMA as two.
+SIMT_LANE_OPS_PER_S = 128 * 132 * 1.98e9
 #: Arithmetic / compare / ballot operations one simulated thread needs for
 #: one sub-step in which nothing happens (no wake, release, poll or
 #: arrival), counted on the unconditional path of csrc/lock_sim_block.cu:
@@ -955,11 +971,12 @@ def nbytes(tensors):
                if isinstance(t, torch.Tensor))
 
 
-def roofline(n_bytes, ops):
+def roofline(n_bytes, ops, ops_per_s=FP32_OPS_PER_S):
     """The least time of a launch: ``n_bytes`` over the memory rate against
-    ``ops`` over the float32 rate, the larger wins."""
+    ``ops`` over ``ops_per_s`` (default the float32 rate), the larger
+    wins."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes_ms": bytes_ms, "operations_ms": ops_ms}
@@ -974,6 +991,35 @@ def time_pair(kern, plain, where, names, shape):
             "with_host_ms": median_ms(kern, 20),
             "plain_ms": median_ms(plain, 3), "library_ms": None,
             "shape": shape}
+
+
+#: Warps per SM at which ``rows_per_sm_ms`` times the block kernel: C = SMs
+#: x w rows, one warp a row, w a multiple of the block's 4 warps.
+ROWS_PER_SM_WARPS = (4, 8, 12, 16, 20, 24, 32, 40)
+
+
+def rows_per_sm_ms(state, args, step0, n_steps, open_loop):
+    """The block kernel's device ms at C = SMs x w rows for each w of
+    ``ROWS_PER_SM_WARPS``: the first C rows of the timing shape's state and
+    columns, the same 32 sub-steps from ``step0``.  Flat up to the
+    occupancy limit: each warp's chain of dependent instructions sets the
+    time (latency-bound); growing from small w: the SM's issue slots do
+    (issue-bound).  Points past the limit run a second wave."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    n = len(ref.BLOCK_STATE)
+    out = {}
+    for w in ROWS_PER_SM_WARPS:
+        C = sms * w
+        cut = lambda ts: [t[:C].contiguous() if isinstance(t, torch.Tensor)
+                          and t.ndim >= 1 else t for t in ts]
+        st, ar = cut(state), cut(args)
+        out[str(w)] = median_ms(
+            lambda: K.lock_sim_block(
+                *st[:n], step0, *ar, n_sub_steps=xdes.DEFAULT_BLOCK_STEPS,
+                limit=n_steps, ids_checked=True,
+                open_state=st[n:] if open_loop else None), 20,
+            hide_host=True)
+    return out
 
 
 def time_launches(cols, T, n_steps, open_loop, ops_per_thread_step,
@@ -1011,7 +1057,10 @@ def time_launches(cols, T, n_steps, open_loop, ops_per_thread_step,
     live_steps = min(B, n_steps - warm)
     out["block"].update(n_sub_steps=B, active_threads=active, **roofline(
         2 * nbytes(state) + nbytes(args),
-        live_steps * (active * ops_per_thread_step + C * ops_per_row_step)))
+        live_steps * (active * ops_per_thread_step + C * ops_per_row_step),
+        SIMT_LANE_OPS_PER_S))
+    out["block"]["rows_per_sm_ms"] = rows_per_sm_ms(state, args, warm,
+                                                    n_steps, open_loop)
 
     st, rem = state[0], state[1]
     if not open_loop:
@@ -1023,7 +1072,7 @@ def time_launches(cols, T, n_steps, open_loop, ops_per_thread_step,
         # in: st, rem and the four columns; out: rem' and burn (C,) f32
         out["advance"].update(active_threads=active, **roofline(
             nbytes((st, rem, *adv)) + nbytes((rem, cols["dt"])),
-            active * OPS_PER_THREAD_ADVANCE))
+            active * OPS_PER_THREAD_ADVANCE, SIMT_LANE_OPS_PER_S))
     rem1, _, now2, i = step_inputs(cols, state, warm)
     tstate = (st, rem1, *state[2:16], *(state[17:] if open_loop else ()))
     out["transitions"] = time_pair(
@@ -1038,7 +1087,7 @@ def time_launches(cols, T, n_steps, open_loop, ops_per_thread_step,
     out["transitions"].update(active_threads=active, **roofline(
         2 * nbytes(tstate) + nbytes(prm) + nbytes((now2, i)),
         active * (OPS_PER_THREAD_TRANSITION + extra)
-        + C * ops_per_row_step))
+        + C * ops_per_row_step, SIMT_LANE_OPS_PER_S))
     return out
 
 
@@ -1110,7 +1159,8 @@ def oracle_entry(args):
             "replaces": "src/repro/kernels/lock_sim.py:173",
             "launches": 0, "max_abs_err": 0.0, **timing,
             **roofline(nbytes(args) + 3 * nbytes(args[:1]),
-                       ORACLE_CONFIGS * OPS_PER_ROW_ORACLE)}
+                       ORACLE_CONFIGS * OPS_PER_ROW_ORACLE,
+                       SIMT_LANE_OPS_PER_S)}
 
 
 # --------------------------------------------------------------------------
@@ -2072,27 +2122,98 @@ STREAM_MEM_MB = 1.5
 STREAM_TARGET_CS = 20
 
 
+#: Instruction classes of ``k1_sass``: a class counts the SASS
+#: instructions whose opcode (before the first ".") is in its set, or, for
+#: "int", starts with "I" (IMAD, IADD3, ISETP, IMNMX, IABS, I2F...).
+SASS_CLASSES = {"vote": ("VOTE", "VOTEU"), "redux": ("REDUX",),
+                "shfl": ("SHFL",), "mufu": ("MUFU",), "call": ("CALL",),
+                "bssy": ("BSSY",), "bra": ("BRA",), "lds": ("LDS",),
+                "sts": ("STS",)}
+
+
+def sass_functions(path):
+    """``{function name: [opcode, ...]}`` of a library's ``cuobjdump -sass``,
+    opcodes without their predicate and modifiers, NOPs left out."""
+    tool = os.path.join(os.path.dirname(KB.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        ops = []
+        for ln in chunk.splitlines()[1:]:
+            code = ln.split("*/", 1)[1] if ln.lstrip().startswith("/*") \
+                and "*/" in ln else ""
+            words = code.replace(";", " ").split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words and words[0][0].isalpha():
+                op = words[0].split(".")[0]
+                if op != "NOP":
+                    ops.append(op)
+        out[chunk.split(None, 1)[0]] = ops
+    return out
+
+
+def sass_classes(ops):
+    """Static counts of ``ops`` in total, by ``SASS_CLASSES``, integer, and
+    the eight most frequent opcodes."""
+    out = {"total": len(ops)}
+    for cls, names in SASS_CLASSES.items():
+        out[cls] = sum(op in names for op in ops)
+    out["int"] = sum(op.startswith("I") for op in ops)
+    counts = {}
+    for op in ops:
+        counts[op] = counts.get(op, 0) + 1
+    out["top"] = dict(sorted(counts.items(), key=lambda kv: -kv[1])[:8])
+    return out
+
+
+def ptxas_by_entry(log):
+    """``{mangled entry name: [registers line, spill line]}`` of ptxas -v."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else None
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
+
+
+def k1_sass(sim_build):
+    """K1 in the simulator library: per ``lock_sim_block_kernel<NS, OPEN>``
+    instantiation, static SASS counts by class (``sass_classes``),
+    ptxas's registers and spills, and the blocks and warps resident on an
+    SM (``lock_sim.block_occupancy``).  Fails unless all six
+    instantiations are there, or if ptxas spilled in one."""
+    funcs = sass_functions(sim_build.path)
+    regs = ptxas_by_entry(sim_build.log)
+    occ = K.block_occupancy(DEV)
+    out = {}
+    for ns in (1, 2, 4):
+        for opn in (False, True):
+            name = f"<{ns}, {'true' if opn else 'false'}>"
+            tag = f"lock_sim_block_kernelILi{ns}ELb{int(opn)}E"
+            hit = [f for f in funcs if tag in f]
+            if len(hit) != 1:
+                fail(f"build: lock_sim_block_kernel{name} not in the SASS")
+            ptxas = regs.get(hit[0], [])
+            if any("spill" in ln and ", 0 bytes spill stores" not in ln
+                   for ln in ptxas):
+                fail(f"build: lock_sim_block_kernel{name} spills: {ptxas}")
+            out[name] = {**sass_classes(funcs[hit[0]]), "ptxas": ptxas,
+                         **occ[name]}
+    return out
+
+
 def tensor_core_sass(lm_build):
     """K5's tensor-core kernel in the LM library: per instantiation
     (``flash_attention_kernel_sm90<64>``, ``<128>``), its ``HGMMA``
     instructions in ``cuobjdump -sass`` and ptxas's registers and spills.
     Fails unless both instantiations are there and each issues HGMMA."""
-    tool = os.path.join(os.path.dirname(KB.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lm_build.path)],
-                          capture_output=True, text=True, check=True).stdout
-    out = {}
-    for chunk in sass.split("Function : ")[1:]:
-        name = chunk.split(None, 1)[0]
-        if "flash_attention_kernel_sm90" in name:
-            out[name] = {"hgmma": chunk.count("HGMMA")}
-    # ptxas -v: "Compiling entry function '<name>'", then its stack,
-    # spills and registers
-    name = None
-    for ln in lm_build.log.splitlines():
-        if "entry function" in ln:
-            name = ln.split("'")[1] if "'" in ln else None
-        elif name in out and ("registers" in ln or "spill" in ln):
-            out[name].setdefault("ptxas", []).append(ln.strip())
+    regs = ptxas_by_entry(lm_build.log)
+    out = {name: {"hgmma": ops.count("HGMMA"), "ptxas": regs.get(name, [])}
+           for name, ops in sass_functions(lm_build.path).items()
+           if "flash_attention_kernel_sm90" in name}
     if len(out) != 2 or not all(v["hgmma"] > 0 for v in out.values()):
         fail(f"build: flash_attention_kernel_sm90 without HGMMA in its SASS: "
              f"{out}")
@@ -2125,6 +2246,7 @@ def main():
           "lm_library": os.path.relpath(lm_build.path, HERE),
           "lm_ptxas": ptxas(lm_build),
           "k5_tensor_core_sass": tensor_core_sass(lm_build),
+          "k1_sass": k1_sass(sim_build),
           # the pair whose device math libraries must agree for phase 3
           "nvcc": KB.nvcc_release(), "torch": torch.__version__,
           "torch_cuda": torch.version.cuda})

@@ -202,22 +202,39 @@ __device__ __forceinline__ bool w_any(const bool (&m)[NS]) {
   return b != 0;
 }
 
-// exclusive prefix count in tid order (`cumsum(mask) - 1` on lanes in mask)
+// The lane's index and the mask of the lanes below it, read from their
+// special registers where they are used, so that no register holds them
+// across the sub-step loop
+__device__ __forceinline__ unsigned lane_id() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%laneid;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%lanemask_lt;" : "=r"(v));
+  return v;
+}
+
+// exclusive prefix count in tid order (`cumsum(mask) - 1` on lanes in
+// mask); returns the count of the mask
 template <int NS>
-__device__ __forceinline__ void w_rank(const bool (&m)[NS], int (&r)[NS],
-                                       unsigned lt) {
+__device__ __forceinline__ int w_rank(const bool (&m)[NS], int (&r)[NS]) {
+  const unsigned lt = lanemask_lt();
   int base = 0;
   UNROLL for (int j = 0; j < NS; ++j) {
     unsigned b = __ballot_sync(FULL_MASK, m[j]);
     r[j] = base + __popc(b & lt);
     base += __popc(b);
   }
+  return base;
 }
 
 // one-hot of the lowest tid in mask (all false when the mask is empty)
 template <int NS>
-__device__ __forceinline__ void w_first(const bool (&m)[NS], bool (&oh)[NS],
-                                        unsigned lane) {
+__device__ __forceinline__ void w_first(const bool (&m)[NS], bool (&oh)[NS]) {
+  const unsigned lane = lane_id();
   bool found = false;
   UNROLL for (int j = 0; j < NS; ++j) {
     unsigned b = __ballot_sync(FULL_MASK, m[j]);
@@ -246,6 +263,15 @@ __device__ __forceinline__ int w_sum_where(const bool (&m)[NS],
 __device__ __forceinline__ float w_fsum(float v) {
   UNROLL for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
   return v;
+}
+
+// fmodf(x, 1.0f) for every finite x, without fmodf's reduction loop: x -
+// truncf(x) is the fractional part exactly (for |x| >= 1 the two share an
+// exponent within a factor of two, so the difference is exact; for |x| >=
+// 2^23 both are integers and it is 0), and copysignf gives a zero result
+// x's sign, as fmodf does.  For x >= 0 it is also Python's x % 1.0.
+__device__ __forceinline__ float frac1(float x) {
+  return copysignf(x - truncf(x), x);
 }
 
 // Python's `%` (floor modulo) for a positive modulus
@@ -378,11 +404,10 @@ struct Lanes {
   int st[NS], slept[NS], spun[NS], tk[NS], cpt[NS];
   float rem[NS], wk[NS], req_t[NS];
   unsigned ctr[NS];
-  // fixed per launch: thread id, active (tid < threads), and the persistent
-  // per-thread workload state (ref.workload_state)
+  // fixed per launch: thread id and active (tid < threads); the persistent
+  // per-thread workload state sits in the row's slot (RowSlot)
   unsigned tid[NS];
   bool active[NS];
-  float phase_u[NS], tscale[NS];
 };
 
 // The config row's columns, loaded once, and its derived constants.
@@ -402,19 +427,46 @@ struct RowCtx {
   bool hand_f, fifo_f, budget_f, w2s_f, repark_f, win_f, bscale_f, backoff_f;
   int arrive_rule, quota_rule;
   float teps, wake_base;
-  // open loop (AR_CLOSED and zeros in the closed variant)
+  // open loop (AR_CLOSED and zeros in the closed variant); the admission's
+  // floor(rate * dt) and its remainder, per value of the burst gate
+  // (ar_mf[g], ar_fr[g] for gate_on = g)
   int arrival, q_cap;
-  float arr_rate, slo, ar_phase;
+  float slo, ar_phase;
+  float ar_mf0, ar_fr0, ar_mf1, ar_fr1;
   bool openc;
+  // the block kernel's GPS columns (zeros in the transition kernel)
+  float alpha, cores;
 };
 
-// The config row's (C,) state, in registers; the open counters in the open
-// variant only.
+// The config row's (C,) state that only the lane stages touch (departed,
+// slo_viol and lat_sum: zeros in the closed variant).  The kernels keep it in
+// the warp's slot of shared memory beside the row context.
 struct RowState {
   int sws, cnt, ewma, wuc, permits, nticket, completed, wake_count;
-  int qhead, qlen, arrived, shed, departed, slo_viol;
-  float lat_sum, occ_int;
+  int qhead, arrived, shed, departed, slo_viol;
+  float lat_sum;
 };
+
+// The open row's queue length and occupancy integral, which every step
+// moves: in registers (zeros in the closed variant).
+struct Queue {
+  int qlen;
+  float occ_int;
+};
+
+// The arrival row's instantaneous rate (policy.arrival_rate_at) at burst gate
+// gate_on (0 or 1)
+__device__ __forceinline__ float arrival_rate(int arrival, float arr_rate,
+                                              float gate_on, float burst) {
+  switch (arrival) {
+    case AR_POISSON:
+      return arr_rate * 1.0f;
+    case AR_BURSTY:
+      return arr_rate * (1.0f + gate_on * (burst - 1.0f));
+    default:  // AR_CLOSED
+      return arr_rate * 0.0f;
+  }
+}
 
 // The row's closed-loop columns and the discipline row's flags; load_open
 // adds the open-loop columns, derive_row_ctx the derived constants.
@@ -455,10 +507,11 @@ __device__ __forceinline__ RowCtx load_row_ctx(const BlockArgs& a, int c) {
   r.quota_rule = (r.row >> 12) & 0xF;
   r.arrival = AR_CLOSED;
   r.q_cap = 0;
-  r.arr_rate = 0.0f;
   r.slo = 0.0f;
   r.ar_phase = 0.0f;
+  r.ar_mf0 = r.ar_fr0 = r.ar_mf1 = r.ar_fr1 = 0.0f;
   r.openc = false;
+  r.alpha = r.cores = 0.0f;
   return r;
 }
 
@@ -466,7 +519,8 @@ __device__ __forceinline__ RowCtx load_row_ctx(const BlockArgs& a, int c) {
 template <int NS, bool OPEN>
 __device__ __forceinline__ void load_lanes(const BlockArgs& a, int c, int T,
                                            unsigned lane, const RowCtx& r,
-                                           Lanes<NS>& L) {
+                                           Lanes<NS>& L, float* phase_u,
+                                           float* tscale) {
   UNROLL for (int j = 0; j < NS; ++j) {
     L.tid[j] = j * 32 + lane;
     const bool valid = (int)L.tid[j] < T;
@@ -483,8 +537,8 @@ __device__ __forceinline__ void load_lanes(const BlockArgs& a, int c, int T,
     if constexpr (OPEN) L.req_t[j] = valid ? a.req_t[g] : -1.0f;
     L.active[j] = (int)L.tid[j] < r.threads;
     // persistent per-thread workload state (ref.workload_state)
-    L.phase_u[j] = counter_uniform(r.seed ^ WL_PHASE_SALT, L.tid[j], 0u);
-    L.tscale[j] = r.workload == WL_HETERO
+    phase_u[L.tid[j]] = counter_uniform(r.seed ^ WL_PHASE_SALT, L.tid[j], 0u);
+    tscale[L.tid[j]] = r.workload == WL_HETERO
                       ? powf(r.wl_spread,
                              2.0f * counter_uniform(r.seed ^ WL_SPREAD_SALT,
                                                     L.tid[j], 0u) -
@@ -503,9 +557,35 @@ __device__ __forceinline__ RowState load_row_state(const BlockArgs& a, int c) {
   s.nticket = a.nticket[c];
   s.completed = a.completed[c];
   s.wake_count = a.wake_count[c];
-  s.qhead = s.qlen = s.arrived = s.shed = s.departed = s.slo_viol = 0;
-  s.lat_sum = s.occ_int = 0.0f;
+  s.qhead = s.arrived = s.shed = s.departed = s.slo_viol = 0;
+  s.lat_sum = 0.0f;
   return s;
+}
+
+// The warp's slot of shared memory: the row context and state, copied in by
+// lane 0 once the row is loaded, and each thread's persistent workload state
+// (ref.workload_state), written by its lane.  The stages reach the slot
+// through a volatile reference, field by field where they use it, so that
+// none of it sits in every lane's registers for the whole launch.  Every
+// lane writes a state field with the same value, and reads back its own
+// write.
+template <int NS>
+struct RowSlot {
+  RowCtx ctx;
+  RowState st;
+  float phase_u[32 * NS], tscale[32 * NS];
+  int arr[32];  // the block kernel's arrivals of 32 sub-steps, one a lane
+};
+
+template <int NS>
+__device__ __forceinline__ volatile RowSlot<NS>& publish_row(
+    RowSlot<NS>* slot, const RowCtx& r, const RowState& s, unsigned lane) {
+  if (lane == 0) {
+    slot->ctx = r;
+    slot->st = s;
+  }
+  __syncwarp();
+  return *slot;
 }
 
 // The row's derived constants, set after its state is loaded (the order the
@@ -520,7 +600,7 @@ __device__ __forceinline__ void derive_row_ctx(RowCtx& r) {
 // open-loop columns and its counters.
 __device__ __forceinline__ void load_open(const BlockArgs& a, int c,
                                           unsigned lane, float* qb, int* hs,
-                                          RowCtx& r, RowState& s) {
+                                          RowCtx& r, RowState& s, Queue& q) {
   const long long qrow = (long long)c * QUEUE_MAX;
   const long long hrow = (long long)c * LAT_NBINS;
   UNROLL for (int j = 0; j < QUEUE_MAX / 32; ++j)
@@ -529,19 +609,26 @@ __device__ __forceinline__ void load_open(const BlockArgs& a, int c,
     hs[j * 32 + lane] = a.hist[hrow + j * 32 + lane];
   __syncwarp();
   r.arrival = a.arrival[c];
-  r.arr_rate = a.arr_rate[c];
   r.q_cap = a.q_cap[c];
   r.slo = a.slo[c];
   r.ar_phase = counter_uniform(r.seed ^ AR_PHASE_SALT, 0u, 0u);
   r.openc = r.arrival != AR_CLOSED;
+  // rate * dt takes two values, one per gate: split each once per launch
+  const float arr_rate = a.arr_rate[c];
+  const float m0 = arrival_rate(r.arrival, arr_rate, 0.0f, r.wl_burst) * r.dt;
+  const float m1 = arrival_rate(r.arrival, arr_rate, 1.0f, r.wl_burst) * r.dt;
+  r.ar_mf0 = floorf(m0);
+  r.ar_fr0 = m0 - r.ar_mf0;
+  r.ar_mf1 = floorf(m1);
+  r.ar_fr1 = m1 - r.ar_mf1;
   s.qhead = a.qhead[c];
-  s.qlen = a.qlen[c];
+  q.qlen = a.qlen[c];
   s.arrived = a.arrived[c];
   s.shed = a.shed[c];
+  q.occ_int = a.occ_int[c];
   s.departed = a.departed[c];
   s.slo_viol = a.slo_viol[c];
   s.lat_sum = a.lat_sum[c];
-  s.occ_int = a.occ_int[c];
 }
 
 // Store the lanes, then (OPEN) the ring, histogram and open counters, then
@@ -549,7 +636,8 @@ __device__ __forceinline__ void load_open(const BlockArgs& a, int c,
 template <int NS, bool OPEN, bool CPU = false>
 __device__ __forceinline__ void store_row(const BlockArgs& a, int c, int T,
                                           unsigned lane, const Lanes<NS>& L,
-                                          const RowState& s, const float* qb,
+                                          const volatile RowState& s,
+                                          const Queue& q, const float* qb,
                                           const int* hs,
                                           float spin_cpu = 0.0f) {
   UNROLL for (int j = 0; j < NS; ++j) {
@@ -576,13 +664,13 @@ __device__ __forceinline__ void store_row(const BlockArgs& a, int c, int T,
       a.o_hist[hrow + j * 32 + lane] = hs[j * 32 + lane];
     if (lane == 0) {
       a.o_qhead[c] = s.qhead;
-      a.o_qlen[c] = s.qlen;
+      a.o_qlen[c] = q.qlen;
       a.o_arrived[c] = s.arrived;
       a.o_shed[c] = s.shed;
       a.o_departed[c] = s.departed;
       a.o_slo_viol[c] = s.slo_viol;
       a.o_lat_sum[c] = s.lat_sum;
-      a.o_occ_int[c] = s.occ_int;
+      a.o_occ_int[c] = q.occ_int;
     }
   }
   if (lane == 0) {
@@ -598,6 +686,7 @@ __device__ __forceinline__ void store_row(const BlockArgs& a, int c, int T,
   }
 }
 
+
 // -- one transition stage (ref.lock_transitions_ref) ----------------------------
 // Stages, in the order the event-driven DES resolves a timestep: [open-loop
 // admission] -> budget exhaustion -> wake completions -> CS release/handoff
@@ -605,12 +694,89 @@ __device__ __forceinline__ void store_row(const BlockArgs& a, int c, int T,
 // [-> open-loop binding + occupancy].  `now2` is the step's end time,
 // `now_teps` now2 + teps (the wake test's tolerance) and `stepu` the step's
 // index, the counter of the per-step RNG streams.
+//
+// The five lane stages from budget exhaustion to arrivals each fire on a mask
+// of the row's lanes; while all five masks are empty none of them changes
+// anything, so one ballot (any_event) decides whether event_stages runs at
+// all.  The block kernel's sub-step is mostly such a step.
+
+// Does any lane of the row meet one of the five lane stages' tests?
+template <int NS>
+__device__ __forceinline__ bool any_event(unsigned row, const Lanes<NS>& L,
+                                          float now_teps) {
+  bool ev[NS];
+  UNROLL for (int j = 0; j < NS; ++j) {
+    const int st = L.st[j];
+    const bool rem_due = L.rem[j] <= REM_EPS;  // budget, release, arrival
+    const bool wk_due = L.wk[j] <= now_teps;   // wake, backoff poll
+    ev[j] = (rem_due && (st == ST_CS || (st == ST_NCS && L.active[j]) ||
+                         (st == ST_SPIN && (row & F_BUDGET)))) ||
+            (wk_due &&
+             (st == ST_WAKING || (st == ST_SPIN && (row & F_BACKOFF))));
+  }
+  return w_any<NS>(ev);
+}
+
+// The open row's arrivals at step stepu (time now2): floor(rate * dt) plus a
+// Bernoulli trial on the remainder.  rate * dt is split once per launch
+// (RowCtx.ar_mf*, ar_fr*), so only the burst gate, read on bursty rows, and
+// the trial's hash depend on the step.
+__device__ __forceinline__ int arrivals_at(const volatile RowCtx& r,
+                                           float now2, unsigned stepu) {
+  bool on = false;
+  if (r.arrival == AR_BURSTY)
+    on = !(frac1(now2 / r.wl_period + r.ar_phase) >= r.wl_duty);
+  const float mf = on ? r.ar_mf1 : r.ar_mf0;
+  const float fr = on ? r.ar_fr1 : r.ar_fr0;
+  const float u = counter_uniform(r.seed ^ AR_SALT, 0u, stepu);
+  return (int)(mf + (u < fr ? 1.0f : 0.0f));
+}
+
+// The open-loop admission of n_arr arrivals (first in the step: a request
+// admitted at step i is in the system for steps i..j-1 when it departs at
+// step j); the queue bound sheds the rest.  Returns the count admitted; the
+// caller counts n_arr into `arrived` and the rest into `shed`.
+__device__ __forceinline__ int admit(int q_cap, int qhead, Queue& q,
+                                     float* qb, int n_arr, float now2,
+                                     unsigned lane) {
+  const int n_adm = min(n_arr, q_cap - q.qlen);
+  if (n_adm > 0) {
+    const int tail = qhead + q.qlen;
+    UNROLL for (int j = 0; j < QUEUE_MAX / 32; ++j) {
+      const int qi = j * 32 + (int)lane;
+      if (mod_floor(qi - tail, QUEUE_MAX) < n_adm) qb[qi] = now2;
+    }
+    __syncwarp();
+  }
+  q.qlen += n_adm;
+  return n_adm;
+}
+
+// A parked thread's wake time (now2 + the fault row's wake delay)
+__device__ __forceinline__ float wake_due_of(const volatile RowCtx& r,
+                                             unsigned tid, float now2,
+                                             unsigned stepu) {
+  float wake_eff = r.wake_base;
+  if (r.fault == FAULT_LOSTWAKE || r.fault == FAULT_JITTER) {
+    const float w1 = counter_uniform(r.seed ^ FLT_WAKE_SALT, tid, stepu);
+    if (w1 < r.flt_rate) {
+      if (r.fault == FAULT_LOSTWAKE) {
+        wake_eff = r.wake_base + (r.flt_scale - r.wake_base);
+      } else {
+        const float w2 = counter_uniform(r.seed ^ FLT_MAG_SALT, tid, stepu);
+        wake_eff = r.wake_base + r.flt_scale * w2;
+      }
+    }
+  }
+  return now2 + wake_eff;
+}
+
+// The five lane stages, from budget exhaustion to arrivals.
 template <int NS, bool OPEN>
-__device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
-                                                Lanes<NS>& L, float* qb,
-                                                int* hs, float now2,
-                                                float now_teps, unsigned stepu,
-                                                unsigned lane, unsigned lt) {
+__device__ __forceinline__ void event_stages(volatile RowSlot<NS>& S,
+                                             Lanes<NS>& L, int* hs,
+                                             float now2, float now_teps,
+                                             unsigned stepu) {
   const float inf = __int_as_float(0x7f800000);
   int(&st)[NS] = L.st;
   int(&slept)[NS] = L.slept;
@@ -623,135 +789,73 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
   unsigned(&ctr)[NS] = L.ctr;
   const unsigned(&tid)[NS] = L.tid;
   const bool(&active)[NS] = L.active;
-  const float(&phase_u)[NS] = L.phase_u;
-  const float(&tscale)[NS] = L.tscale;
-  int& sws = rs.sws;
-  int& cnt = rs.cnt;
-  int& ewma = rs.ewma;
-  int& wuc = rs.wuc;
-  int& permits = rs.permits;
-  int& nticket = rs.nticket;
-  int& completed = rs.completed;
-  int& wake_count = rs.wake_count;
-  int& qhead = rs.qhead;
-  int& qlen = rs.qlen;
-  int& arrived = rs.arrived;
-  int& shed = rs.shed;
-  int& departed = rs.departed;
-  int& slo_viol = rs.slo_viol;
-  float& lat_sum = rs.lat_sum;
-  float& occ_int = rs.occ_int;
-  const unsigned row = r.row;
-  const float dt = r.dt, cs_lo = r.cs_lo, cs_hi = r.cs_hi;
-  const float ncs_lo = r.ncs_lo, ncs_hi = r.ncs_hi;
-  const int k = r.k, sws_max = r.sws_max;
-  const float spin_budget = r.spin_budget;
-  const unsigned seed = r.seed;
-  const int oracle = r.oracle, workload = r.workload;
-  const float wl_period = r.wl_period, wl_duty = r.wl_duty;
-  const float wl_burst = r.wl_burst;
-  const bool tb_random = r.tb_random;
-  const int fault = r.fault;
-  const float flt_rate = r.flt_rate, flt_scale = r.flt_scale;
-  const float park_cost = r.park_cost, wake_base = r.wake_base;
-  const int arrival = r.arrival, q_cap = r.q_cap;
-  const float arr_rate = r.arr_rate, slo = r.slo, ar_phase = r.ar_phase;
-  const bool openc = r.openc;
-  const bool hand_f = r.hand_f, fifo_f = r.fifo_f;
-  const bool budget_f = r.budget_f, w2s_f = r.w2s_f;
-  const bool repark_f = r.repark_f, win_f = r.win_f;
-  const bool bscale_f = r.bscale_f, backoff_f = r.backoff_f;
-  const int arrive_rule = r.arrive_rule, quota_rule = r.quota_rule;
-
+  const volatile RowCtx& r = S.ctx;
+  volatile RowState& rs = S.st;
+  volatile int& sws = rs.sws;
+  volatile int& wuc = rs.wuc;
+  volatile int& permits = rs.permits;
+  volatile int& nticket = rs.nticket;
+  volatile int& completed = rs.completed;
+  volatile int& wake_count = rs.wake_count;
+  volatile int& departed = rs.departed;
+  volatile int& slo_viol = rs.slo_viol;
+  volatile float& lat_sum = rs.lat_sum;
   bool m[NS], oh[NS];
   int rk[NS];
+  // The row's counters are read and written by every lane at once, each
+  // writing the same value: the warp stays converged through the stages
+  // (every branch below the per-lane ones is warp-uniform).
+  __syncwarp();
 
-  // ---- per-step per-thread context ------------------------------------------
-  float wake_due[NS], gate_off[NS];
-  UNROLL for (int j = 0; j < NS; ++j) {
-    float wake_eff = wake_base;
-    if (fault == FAULT_LOSTWAKE || fault == FAULT_JITTER) {
-      const float w1 = counter_uniform(seed ^ FLT_WAKE_SALT, tid[j], stepu);
-      if (w1 < flt_rate) {
-        if (fault == FAULT_LOSTWAKE) {
-          wake_eff = wake_base + (flt_scale - wake_base);
-        } else {
-          const float w2 = counter_uniform(seed ^ FLT_MAG_SALT, tid[j], stepu);
-          wake_eff = wake_base + flt_scale * w2;
-        }
-      }
-    }
-    wake_due[j] = now2 + wake_eff;
-    gate_off[j] = 0.0f;
-    if (workload == WL_BURSTY) {
-      const float pos = fmodf(now2 / wl_period + phase_u[j], 1.0f);
-      gate_off[j] = pos >= wl_duty ? 1.0f : 0.0f;
-    }
+// oracle_acquire on the row's counters in shared memory
+#define ORACLE_ACQUIRE(happened, spun_w, slept_w, thc)                      \
+  {                                                                         \
+    int sws_ = rs.sws, cnt_ = rs.cnt, ewma_ = rs.ewma, wuc_ = rs.wuc;       \
+    oracle_acquire(happened, spun_w, slept_w, thc, r.oracle, r.k,           \
+                   r.sws_max, r.row, sws_, cnt_, ewma_, wuc_);              \
+    rs.sws = sws_;                                                          \
+    rs.cnt = cnt_;                                                          \
+    rs.ewma = ewma_;                                                        \
+    rs.wuc = wuc_;                                                          \
   }
 
 #define BUDGET_EFF() \
-  (spin_budget * (bscale_f ? (float)sws * park_cost : 1.0f))
+  (r.spin_budget * (r.bscale_f ? (float)sws * r.park_cost : 1.0f))
 
-  // ---- open-loop admission (first: a request admitted at step i is in the
-  // system for steps i..j-1 when it departs at step j) ------------------------
-  if constexpr (OPEN) {
-    const float gate_on =
-        1.0f -
-        (fmodf(now2 / wl_period + ar_phase, 1.0f) >= wl_duty ? 1.0f : 0.0f);
-    float rate;
-    switch (arrival) {
-      case AR_POISSON:
-        rate = arr_rate * 1.0f;
-        break;
-      case AR_BURSTY:
-        rate = arr_rate * (1.0f + gate_on * (wl_burst - 1.0f));
-        break;
-      default:  // AR_CLOSED
-        rate = arr_rate * 0.0f;
-    }
-    // Bernoulli-rounded count: floor(rate*dt) plus a trial on the rest
-    const float m = rate * dt;
-    const float mf = floorf(m);
-    const float u_arr = counter_uniform(seed ^ AR_SALT, 0u, stepu);
-    const int n_arr = (int)(mf + (u_arr < m - mf ? 1.0f : 0.0f));
-    const int n_adm = min(n_arr, q_cap - qlen);  // bounded queue: shed
-    if (n_adm > 0) {
-      const int tail = qhead + qlen;
-      UNROLL for (int j = 0; j < QUEUE_MAX / 32; ++j) {
-        const int qi = j * 32 + (int)lane;
-        if (mod_floor(qi - tail, QUEUE_MAX) < n_adm) qb[qi] = now2;
-      }
-      __syncwarp();
-    }
-    qlen += n_adm;
-    arrived += n_arr;
-    shed += n_arr - n_adm;
-  }
-
-// CS / NCS duration draw on the lanes of a mask; bumps their counters
+// CS / NCS duration draw on the lanes of a mask; bumps their counters.  An
+// NCS draw on a bursty row reads the thread's OFF gate at now2.
 #define DRAW_INTO(mask, lo, hi, is_ncs, new_st)                             \
   UNROLL for (int j = 0; j < NS; ++j) if (mask[j]) {                        \
-    const float u = counter_uniform(seed, tid[j], ctr[j]);                  \
-    rem[j] = workload_draw(u, lo, hi, is_ncs, workload, gate_off[j],        \
-                           tscale[j], wl_burst);                            \
+    const float u = counter_uniform(r.seed, tid[j], ctr[j]);                \
+    float gate_off = 0.0f;                                                  \
+    if ((is_ncs) && r.workload == WL_BURSTY)                                \
+      gate_off = frac1(now2 / r.wl_period + S.phase_u[tid[j]]) >= r.wl_duty \
+                     ? 1.0f : 0.0f;                                         \
+    rem[j] = workload_draw(u, lo, hi, is_ncs, r.workload, gate_off,         \
+                           S.tscale[tid[j]], r.wl_burst);                   \
     ctr[j] = ctr[j] + 1u;                                                   \
     st[j] = new_st;                                                         \
   }
 
-// ref.park: park the lanes of a mask, absorbing banked permits
+// ref.park: park the lanes of a mask, absorbing banked permits.  The
+// lanes ranked below `permits` are granted: min(count, permits) of them, or
+// none when permits <= 0.  An empty mask changes nothing.
 #define PARK(mask)                                                          \
   {                                                                         \
-    w_rank<NS>(mask, rk, lt);                                               \
-    bool grant[NS];                                                         \
-    UNROLL for (int j = 0; j < NS; ++j) grant[j] = mask[j] && rk[j] < permits; \
-    const int n_grant = w_count<NS>(grant);                                 \
-    UNROLL for (int j = 0; j < NS; ++j) {                                   \
-      if (grant[j]) { st[j] = ST_WAKING; wk[j] = wake_due[j]; }             \
-      else if (mask[j]) st[j] = ST_SLEEP;                                   \
-      if (mask[j]) { slept[j] = 1; rem[j] = inf; }                          \
+    const int n_mask = w_rank<NS>(mask, rk);                            \
+    if (n_mask > 0) {                                                       \
+      const int held = permits;                                             \
+      UNROLL for (int j = 0; j < NS; ++j) {                                 \
+        if (mask[j] && rk[j] < held) {                                      \
+          st[j] = ST_WAKING;                                                \
+          wk[j] = wake_due_of(r, tid[j], now2, stepu);                      \
+        } else if (mask[j]) st[j] = ST_SLEEP;                               \
+        if (mask[j]) { slept[j] = 1; rem[j] = inf; }                        \
+      }                                                                     \
+      const int n_grant = max(0, min(n_mask, held));                        \
+      permits = held - n_grant;                                             \
+      wake_count += n_grant;                                                \
     }                                                                       \
-    permits -= n_grant;                                                     \
-    wake_count += n_grant;                                                  \
   }
 
 #define THC_OF(out)                                                         \
@@ -770,7 +874,7 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
   }
 
   // ---- spin-budget exhaustion -> sleep ------------------------------------
-  if (budget_f) {
+  if (r.budget_f) {
     UNROLL for (int j = 0; j < NS; ++j)
       m[j] = st[j] == ST_SPIN && rem[j] <= REM_EPS;
     PARK(m)
@@ -784,36 +888,35 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
     if (w_any<NS>(due)) {
       bool holder_free;
       HOLDER_FREE(holder_free)
-      if (fifo_f) {
+      if (r.fifo_f) {
         int wkey[NS];
         UNROLL for (int j = 0; j < NS; ++j)
           wkey[j] = due[j] ? tk[j] : NO_TICKET;
         const int mn = w_min<NS>(wkey);
         UNROLL for (int j = 0; j < NS; ++j) m[j] = due[j] && wkey[j] == mn;
-        w_first<NS>(m, oh, lane);
+        w_first<NS>(m, oh);
       } else {
-        w_first<NS>(due, oh, lane);
+        w_first<NS>(due, oh);
       }
       UNROLL for (int j = 0; j < NS; ++j) oh[j] = oh[j] && holder_free;
       const bool anyA = w_any<NS>(oh);
       const int spun_w = w_sum_where<NS>(oh, spun);
       const int slept_w = w_sum_where<NS>(oh, slept);
-      DRAW_INTO(oh, cs_lo, cs_hi, false, ST_CS)
+      DRAW_INTO(oh, r.cs_lo, r.cs_hi, false, ST_CS)
       int thc;
       THC_OF(thc)
-      oracle_acquire(anyA, spun_w, slept_w, thc, oracle, k, sws_max, row,
-                     sws, cnt, ewma, wuc);
+      ORACLE_ACQUIRE(anyA, spun_w, slept_w, thc)
       // losers: woken into the spinning window, or barged and parked again
       UNROLL for (int j = 0; j < NS; ++j) {
         const bool loser = due[j] && !oh[j];
-        if (loser && w2s_f) {
+        if (loser && r.w2s_f) {
           st[j] = ST_SPIN;
           spun[j] = 1;
-          rem[j] = budget_f ? BUDGET_EFF() : inf;
+          rem[j] = r.budget_f ? BUDGET_EFF() : inf;
         }
-        m[j] = loser && repark_f;
+        m[j] = loser && r.repark_f;
       }
-      if (repark_f) PARK(m)
+      if (r.repark_f) PARK(m)
     }
   }
 
@@ -828,14 +931,14 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
       UNROLL for (int j = 0; j < NS; ++j) cpt[j] += done[j] ? 1 : 0;
       int thc_pre;
       THC_OF(thc_pre)
-      const bool do_latch = win_f;
+      const bool do_latch = r.win_f;
       const int r_wuc = (do_latch && wuc >= 0) ? wuc : -1;
       if (do_latch) wuc = wuc >= 0 ? 0 : wuc + 1;
-      DRAW_INTO(done, ncs_lo, ncs_hi, true, ST_NCS)
+      DRAW_INTO(done, r.ncs_lo, r.ncs_hi, true, ST_NCS)
       // open-loop departure: the request leaves, its latency lands in the
       // histogram and the counters, and its slot frees (DONE)
       if constexpr (OPEN) {
-        if (openc) {
+        if (r.openc) {
           float lsum = 0.0f;
           int bsum = 0;
           bool viol[NS];
@@ -848,7 +951,7 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
               b = fminf(fmaxf(b, 0.0f), (float)(LAT_NBINS - 1));
               bsum += (int)b;
               lsum += latv;
-              viol[j] = latv > slo;
+              viol[j] = latv > r.slo;
               st[j] = ST_DONE;
               rem[j] = inf;
               req_t[j] = -1.0f;
@@ -856,7 +959,7 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
           }
           const int dep_bin = __reduce_add_sync(FULL_MASK, bsum);
           const float lat = w_fsum(lsum);
-          if (lane == 0 && dep_bin < LAT_NBINS) hs[dep_bin] += 1;
+          if (lane_id() == 0 && dep_bin < LAT_NBINS) hs[dep_bin] += 1;
           lat_sum = lat_sum + lat;
           departed += 1;
           slo_viol += w_count<NS>(viol);
@@ -866,26 +969,29 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
       // random key; equal keys fall back to the lowest id
       bool spinners[NS];
       UNROLL for (int j = 0; j < NS; ++j) spinners[j] = st[j] == ST_SPIN;
-      const bool can_handoff = hand_f && w_any<NS>(spinners);
+      const bool can_handoff = r.hand_f && w_any<NS>(spinners);
       if (can_handoff) {
-        int key[NS];
-        UNROLL for (int j = 0; j < NS; ++j) {
-          int kj = (int)tid[j];
-          if (fifo_f) kj = tk[j];
-          else if (tb_random)
-            kj = (int)(counter_uniform(seed ^ TB_SALT, tid[j], stepu) *
-                       8388608.0f);
-          key[j] = spinners[j] ? kj : NO_TICKET;
+        if (r.fifo_f || r.tb_random) {
+          int key[NS];
+          UNROLL for (int j = 0; j < NS; ++j) {
+            const int kj =
+                r.fifo_f ? tk[j]
+                         : (int)(counter_uniform(r.seed ^ TB_SALT, tid[j],
+                                                 stepu) *
+                                 8388608.0f);
+            key[j] = spinners[j] ? kj : NO_TICKET;
+          }
+          const int mn = w_min<NS>(key);
+          UNROLL for (int j = 0; j < NS; ++j)
+            m[j] = spinners[j] && key[j] == mn;
+          w_first<NS>(m, oh);
+        } else {  // key = tid: the lowest spinner
+          w_first<NS>(spinners, oh);
         }
-        const int mn = w_min<NS>(key);
-        UNROLL for (int j = 0; j < NS; ++j)
-          m[j] = spinners[j] && key[j] == mn;
-        w_first<NS>(m, oh, lane);
         const int spun_w = w_sum_where<NS>(oh, spun);
         const int slept_w = w_sum_where<NS>(oh, slept);
-        DRAW_INTO(oh, cs_lo, cs_hi, false, ST_CS)
-        oracle_acquire(true, spun_w, slept_w, thc_pre - 1, oracle, k,
-                       sws_max, row, sws, cnt, ewma, wuc);
+        DRAW_INTO(oh, r.cs_lo, r.cs_hi, false, ST_CS)
+        ORACLE_ACQUIRE(true, spun_w, slept_w, thc_pre - 1)
       }
       // wake quota by discipline rule
       bool parked[NS], sleepers[NS];
@@ -895,7 +1001,7 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
       }
       const int n_parked = w_count<NS>(parked);
       int quota = 0;
-      switch (quota_rule) {
+      switch (r.quota_rule) {
         case QUOTA_WAKE_ONE:
           quota = n_parked > 0 ? 1 : 0;
           break;
@@ -909,24 +1015,26 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
           quota = 0;
       }
       bool sel[NS];
-      if (fifo_f) {
+      int n_sel;
+      if (r.fifo_f) {
         int skey[NS];
         UNROLL for (int j = 0; j < NS; ++j)
           skey[j] = sleepers[j] ? tk[j] : NO_TICKET;
         const int mn = w_min<NS>(skey);
         UNROLL for (int j = 0; j < NS; ++j)
           m[j] = sleepers[j] && skey[j] == mn;
-        w_first<NS>(m, sel, lane);
+        w_first<NS>(m, sel);
         UNROLL for (int j = 0; j < NS; ++j) sel[j] = sel[j] && quota > 0;
-      } else {
-        w_rank<NS>(sleepers, rk, lt);
+        n_sel = w_count<NS>(sel);
+      } else {  // the quota lowest sleepers
+        const int n_sleep = w_rank<NS>(sleepers, rk);
         UNROLL for (int j = 0; j < NS; ++j)
           sel[j] = sleepers[j] && rk[j] < quota;
+        n_sel = max(0, min(n_sleep, quota));
       }
-      const int n_sel = w_count<NS>(sel);
       UNROLL for (int j = 0; j < NS; ++j) if (sel[j]) {
         st[j] = ST_WAKING;
-        wk[j] = wake_due[j];
+        wk[j] = wake_due_of(r, tid[j], now2, stepu);
       }
       wake_count += n_sel;
       permits += quota - n_sel;  // park-free permits are banked
@@ -935,21 +1043,21 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
 
   // ---- ttas_backoff polls ------------------------------------------------------
   float bo_u[NS];
-  if (backoff_f) {
+  if (r.backoff_f) {
     bool poll[NS];
     UNROLL for (int j = 0; j < NS; ++j) {
-      bo_u[j] = counter_uniform(seed ^ BO_SALT, tid[j], stepu);
+      bo_u[j] = counter_uniform(r.seed ^ BO_SALT, tid[j], stepu);
       poll[j] = st[j] == ST_SPIN && wk[j] <= now_teps;
     }
     bool holder_free;
     HOLDER_FREE(holder_free)
-    w_first<NS>(poll, oh, lane);
+    w_first<NS>(poll, oh);
     UNROLL for (int j = 0; j < NS; ++j) oh[j] = oh[j] && holder_free;
-    DRAW_INTO(oh, cs_lo, cs_hi, false, ST_CS)
+    DRAW_INTO(oh, r.cs_lo, r.cs_hi, false, ST_CS)
     UNROLL for (int j = 0; j < NS; ++j) if (poll[j] && !oh[j]) {
       tk[j] = (int)((unsigned)tk[j] + 1u);  // wraps like the int32 tensor
       const float bo_exp = exp2f((float)min(tk[j], BO_CAP));
-      wk[j] = now2 + spin_budget * bo_exp * bo_u[j];
+      wk[j] = now2 + r.spin_budget * bo_exp * bo_u[j];
     }
   }
 
@@ -961,7 +1069,7 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
     if (w_any<NS>(arr)) {
       int thc_base;
       THC_OF(thc_base)
-      w_rank<NS>(arr, rk, lt);
+      w_rank<NS>(arr, rk);
       bool holder_free;
       HOLDER_FREE(holder_free)
       bool sleeps[NS], nonsleep[NS];
@@ -969,7 +1077,7 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
         if (arr[j]) { slept[j] = 0; spun[j] = 0; }
         const int thc_pre_i = thc_base + rk[j];
         bool sl;
-        switch (arrive_rule) {
+        switch (r.arrive_rule) {
           case ARRIVE_SLEEP_LOCK:
             sl = !(rk[j] == 0 && holder_free);
             break;
@@ -985,30 +1093,28 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
         sleeps[j] = arr[j] && sl;
         nonsleep[j] = arr[j] && !sl;
       }
-      w_first<NS>(nonsleep, oh, lane);
+      w_first<NS>(nonsleep, oh);
       UNROLL for (int j = 0; j < NS; ++j) oh[j] = oh[j] && holder_free;
       const bool anyC = w_any<NS>(oh);
       // arrivals have just cleared their slept / spun flags
-      DRAW_INTO(oh, cs_lo, cs_hi, false, ST_CS)
-      oracle_acquire(anyC, 0, 0, thc_base + 1, oracle, k, sws_max, row, sws,
-                     cnt, ewma, wuc);
+      DRAW_INTO(oh, r.cs_lo, r.cs_hi, false, ST_CS)
+      ORACLE_ACQUIRE(anyC, 0, 0, thc_base + 1)
       bool joiners[NS];
       UNROLL for (int j = 0; j < NS; ++j) {
         m[j] = nonsleep[j] && !oh[j];  // to_spinC
         if (m[j]) {
           st[j] = ST_SPIN;
           spun[j] = 1;
-          rem[j] = budget_f ? BUDGET_EFF() : inf;
+          rem[j] = r.budget_f ? BUDGET_EFF() : inf;
         }
-        joiners[j] = m[j] || (sleeps[j] && fifo_f);
+        joiners[j] = m[j] || (sleeps[j] && r.fifo_f);
       }
-      w_rank<NS>(joiners, rk, lt);
-      const int n_join = w_count<NS>(joiners);
+      const int n_join = w_rank<NS>(joiners, rk);
       UNROLL for (int j = 0; j < NS; ++j) {
         if (joiners[j]) tk[j] = nticket + rk[j];
-        if (m[j] && backoff_f) {  // first re-poll within one base delay
+        if (m[j] && r.backoff_f) {  // first re-poll within one base delay
           tk[j] = 0;
-          wk[j] = now2 + spin_budget * bo_u[j];
+          wk[j] = now2 + r.spin_budget * bo_u[j];
         }
       }
       nticket += n_join;
@@ -1016,52 +1122,107 @@ __device__ __forceinline__ void transition_step(const RowCtx& r, RowState& rs,
     }
   }
 
-  // ---- retire tickets ------------------------------------------------------------
-  UNROLL for (int j = 0; j < NS; ++j) {
-    const bool queued =
-        st[j] == ST_SPIN ||
-        (fifo_f && (st[j] == ST_SLEEP || st[j] == ST_WAKING));
-    if (!queued) tk[j] = NO_TICKET;
-  }
+  __syncwarp();
 
-  // ---- open-loop binding: queued requests claim free slots in queue
-  // order; then the occupancy integral accumulates, last ---------------------
-  if constexpr (OPEN) {
-    if (openc) {
-      bool freem[NS];
-      UNROLL for (int j = 0; j < NS; ++j)
-        freem[j] = active[j] && st[j] == ST_DONE;
-      w_rank<NS>(freem, rk, lt);
-      const int n_bind = min(qlen, w_count<NS>(freem));
-      if (n_bind > 0) {
-        bool bindm[NS];
-        float rt[NS];
-        UNROLL for (int j = 0; j < NS; ++j) {
-          bindm[j] = freem[j] && rk[j] < n_bind;
-          rt[j] = bindm[j] ? qb[mod_floor(qhead + rk[j], QUEUE_MAX)] : 0.0f;
-        }
-        __syncwarp();  // reads land before the next admission writes
-        DRAW_INTO(bindm, ncs_lo, ncs_hi, true, ST_NCS)
-        UNROLL for (int j = 0; j < NS; ++j) if (bindm[j]) {
-          req_t[j] = rt[j];
-          slept[j] = 0;
-          spun[j] = 0;
-        }
-        qhead = mod_floor(qhead + n_bind, QUEUE_MAX);
-        qlen -= n_bind;
-      }
-    }
-    bool busy[NS];
-    UNROLL for (int j = 0; j < NS; ++j)
-      busy[j] = active[j] && req_t[j] >= 0.0f;
-    occ_int = occ_int + (float)(qlen + w_count<NS>(busy)) * dt;
-  }
-
+#undef ORACLE_ACQUIRE
 #undef BUDGET_EFF
-#undef DRAW_INTO
 #undef PARK
 #undef THC_OF
 #undef HOLDER_FREE
+}
+
+// ---- retire tickets: only queued threads hold one -------------------------
+template <int NS>
+__device__ __forceinline__ void retire(unsigned row, Lanes<NS>& L) {
+  UNROLL for (int j = 0; j < NS; ++j) {
+    const int st = L.st[j];
+    const bool queued = st == ST_SPIN || ((row & F_FIFO) &&
+                                          (st == ST_SLEEP || st == ST_WAKING));
+    if (!queued) L.tk[j] = NO_TICKET;
+  }
+}
+
+// The open row's free slots (active, DONE) and busy slots (active, holding a
+// request).
+template <int NS>
+__device__ __forceinline__ int count_free(const Lanes<NS>& L) {
+  bool f[NS];
+  UNROLL for (int j = 0; j < NS; ++j) f[j] = L.active[j] && L.st[j] == ST_DONE;
+  return w_count<NS>(f);
+}
+
+template <int NS>
+__device__ __forceinline__ int count_busy(const Lanes<NS>& L) {
+  bool b[NS];
+  UNROLL for (int j = 0; j < NS; ++j) b[j] = L.active[j] && L.req_t[j] >= 0.0f;
+  return w_count<NS>(b);
+}
+
+// ---- open-loop binding: the n_bind = min(qlen, n_free) oldest queued
+// requests claim the lowest free slots; returns n_bind ------------------------
+template <int NS>
+__device__ __forceinline__ int bind(volatile RowSlot<NS>& S, Queue& q,
+                                    Lanes<NS>& L, const float* qb, int n_free,
+                                    float now2) {
+  const int n_bind = min(q.qlen, n_free);
+  if (n_bind <= 0) return 0;
+  int(&st)[NS] = L.st;
+  float(&rem)[NS] = L.rem;
+  unsigned(&ctr)[NS] = L.ctr;
+  const unsigned(&tid)[NS] = L.tid;
+  const volatile RowCtx& r = S.ctx;
+  bool freem[NS], bindm[NS];
+  int rk[NS];
+  float rt[NS];
+  UNROLL for (int j = 0; j < NS; ++j)
+    freem[j] = L.active[j] && st[j] == ST_DONE;
+  w_rank<NS>(freem, rk);
+  UNROLL for (int j = 0; j < NS; ++j) {
+    bindm[j] = freem[j] && rk[j] < n_bind;
+    rt[j] = bindm[j] ? qb[mod_floor(S.st.qhead + rk[j], QUEUE_MAX)] : 0.0f;
+  }
+  __syncwarp();  // reads land before the next admission writes
+  DRAW_INTO(bindm, r.ncs_lo, r.ncs_hi, true, ST_NCS)
+  UNROLL for (int j = 0; j < NS; ++j) if (bindm[j]) {
+    L.req_t[j] = rt[j];
+    L.slept[j] = 0;
+    L.spun[j] = 0;
+  }
+  S.st.qhead = mod_floor(S.st.qhead + n_bind, QUEUE_MAX);
+  q.qlen -= n_bind;
+  return n_bind;
+}
+
+#undef DRAW_INTO
+
+// The occupancy integral, last in the step: (qlen + busy slots) * dt
+__device__ __forceinline__ void occupy(float dt, Queue& q, int n_busy) {
+  q.occ_int = q.occ_int + (float)(q.qlen + n_busy) * dt;
+}
+
+// One whole transition stage (lock_transitions_step.cu; the block kernel runs
+// the same pieces with its row counts carried between sub-steps).
+template <int NS, bool OPEN>
+__device__ __forceinline__ void transition_step(volatile RowSlot<NS>& S,
+                                                Queue& q, Lanes<NS>& L,
+                                                float* qb, int* hs, float now2,
+                                                float now_teps, unsigned stepu,
+                                                unsigned lane) {
+  const volatile RowCtx& r = S.ctx;
+  const unsigned row = r.row;
+  if constexpr (OPEN) {
+    const int n_arr = arrivals_at(r, now2, stepu);
+    const int n_adm = admit(r.q_cap, S.st.qhead, q, qb, n_arr, now2, lane);
+    S.st.arrived += n_arr;
+    S.st.shed += n_arr - n_adm;
+  }
+  if (any_event<NS>(row, L, now_teps))
+    event_stages<NS, OPEN>(S, L, hs, now2, now_teps, stepu);
+  retire<NS>(row, L);
+  if constexpr (OPEN) {
+    if (r.openc) bind<NS>(S, q, L, qb, count_free<NS>(L), now2);
+    occupy(r.dt, q, count_busy<NS>(L));
+  }
 }
 
 }  // namespace

@@ -16,9 +16,10 @@
 // launch.  There is no sub-step loop, so the per-thread workload state
 // (phase_u, tscale) that the block kernel hoists out of its loop is derived on
 // every launch.  now2 and stepi come in as a (C,) column, a 0-d tensor
-// (stride 0) or a scalar.  The open variant keeps its row's request ring and
-// latency histogram in shared memory (768 B per warp), as the block kernel
-// does.
+// (stride 0) or a scalar.  As in the block kernel, the row context, its
+// counters and the workload state sit in the warp's slot of shared memory
+// (RowSlot), and the open variant keeps its row's request ring and latency
+// histogram there too (768 B per warp).
 //
 // What bounds it.  A row reads and writes its 16 state arrays (64 T + 64
 // bytes) and reads 29 context words: about 146 MB at 65 536 x 32, 0.044 ms at
@@ -35,13 +36,16 @@ __global__ void __launch_bounds__(128) lock_transitions_kernel(BlockArgs a) {
   const int c = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (c >= a.C) return;  // the whole warp leaves together
   const unsigned lane = threadIdx.x & 31u;
-  const unsigned lt = (1u << lane) - 1u;
   const int T = a.T;
 
+  __shared__ RowSlot<NS> slots[4];
+  RowSlot<NS>* const my_slot = &slots[threadIdx.x >> 5];
   RowCtx r = load_row_ctx(a, c);
   Lanes<NS> L;
-  load_lanes<NS, OPEN>(a, c, T, lane, r, L);
+  load_lanes<NS, OPEN>(a, c, T, lane, r, L, my_slot->phase_u,
+                       my_slot->tscale);
   RowState rs = load_row_state(a, c);
+  Queue q{};
   derive_row_ctx(r);
   const float now2 = a.now2 ? a.now2[c * a.now2_stride] : a.now2_s;
   const int stepi = a.stepi ? a.stepi[c * a.stepi_stride] : a.stepi_s;
@@ -52,13 +56,14 @@ __global__ void __launch_bounds__(128) lock_transitions_kernel(BlockArgs a) {
   if constexpr (OPEN) {
     qb = smem + (threadIdx.x >> 5) * (QUEUE_MAX + LAT_NBINS);
     hs = reinterpret_cast<int*>(qb + QUEUE_MAX);
-    load_open(a, c, lane, qb, hs, r, rs);
+    load_open(a, c, lane, qb, hs, r, rs, q);
   }
 
-  transition_step<NS, OPEN>(r, rs, L, qb, hs, now2, now2 + r.teps,
-                            (unsigned)stepi, lane, lt);
+  volatile RowSlot<NS>& slot = publish_row<NS>(my_slot, r, rs, lane);
+  transition_step<NS, OPEN>(slot, q, L, qb, hs, now2, now2 + r.teps,
+                            (unsigned)stepi, lane);
 
-  store_row<NS, OPEN>(a, c, T, lane, L, rs, qb, hs);
+  store_row<NS, OPEN>(a, c, T, lane, L, slot.st, q, qb, hs);
 }
 
 template <bool OPEN>

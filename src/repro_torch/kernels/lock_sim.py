@@ -21,8 +21,9 @@ version in :mod:`repro_torch.kernels.ref`:
 
 The three simulator kernels share their device code
 (``csrc/lock_sim_stages.cuh``): one warp per config row, the stages of a
-step as inlined device functions.  All four are bound by the bytes they
-move, not by operations (the notes at the top of each source; ``PERF.md``).
+step as inlined device functions.  Their least times are set by the bytes
+they move, K1 closed's by its operations (the notes at the top of each
+source; ``PERF.md``); the card shows K1 latency-bound.
 
 The wrappers take the plain version **only** for CPU tensors.  For CUDA
 tensors they launch the kernel or raise; there is no fallback.  The
@@ -117,7 +118,7 @@ LIBRARY = build.Library("lock_sim", KERNEL_SOURCES, KERNEL_HEADERS,
 def _library():
     """Build (if needed) and load the kernel library."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    return build.load(LIBRARY, {
+    cdll = build.load(LIBRARY, {
         "lock_sim_block_launch": [ptr, ptr, ptr, i32, i32, i32, i32, i32,
                                   i32],
         "lock_sim_step_launch": [ptr, i32, i32],
@@ -125,6 +126,26 @@ def _library():
                                          ctypes.c_float, ptr, i32, i32, i32,
                                          i32, i32],
         "oracle_step_launch": [ptr, i32]})
+    cdll.lock_sim_block_occupancy.argtypes = [ptr]   # no stream: no launch
+    cdll.lock_sim_block_occupancy.restype = i32
+    return cdll
+
+
+def block_occupancy(device=None) -> dict:
+    """Blocks and warps of each ``lock_sim_block`` instantiation resident
+    on one SM of ``device`` (default: the current CUDA device), as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them at the
+    launch's block size and shared memory: ``{"<NS, OPEN>": {"blocks_per_sm",
+    "warps_per_sm"}}``.  Builds the library if needed; launches nothing."""
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = _library().lock_sim_block_occupancy(out)
+    if err != 0:
+        raise RuntimeError(f"lock_sim_block_occupancy: CUDA error {err}")
+    names = [f"<{ns}, {'true' if op else 'false'}>"
+             for op in (False, True) for ns in (1, 2, 4)]
+    return {n: {"blocks_per_sm": out[i], "warps_per_sm": out[i] * out[6]}
+            for i, n in enumerate(names)}
 
 
 def _launch(name, device, *args):
