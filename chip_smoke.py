@@ -27,8 +27,10 @@ Phases (each but the first prints one JSON line):
    static SASS counts (total, VOTE, REDUX, SHFL, MUFU, CALL, BSSY, BRA,
    LDS, STS, integer, the most frequent opcodes), its registers and
    spills, and the blocks and warps resident on an SM
-   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); fails if an
-   instantiation is missing
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); ``k6_sass`` the
+   same per ``rwkv6_scan_kernel<n, cols>`` instantiation (FFMA, FMUL, SHFL,
+   BAR among the classes), with the shared memory of one CTA at chunk 64
+   and 128; fails if an instantiation is missing or spills
 LM1. ``flash_attention_vs_plain``  ``flash_attention`` against
    ``flash_attention_ref``, both on the card, over dtype {f32, bf16} x hd
    {16, 64, 80, 128, 256} x Sq = Sk {1, 77, 1024, 2048} x GQA group {1, 4,
@@ -60,9 +62,13 @@ LM4. ``serve_at_size``  full llama3.2-1b (16 layers, bf16, random weights
 LM5. ``rwkv6_scan_vs_plain``  ``rwkv6_scan`` against ``rwkv6_scan_ref``,
    both on the card, f32, n = 64 over B*H {1, 32, 128} x T {1, 7, 64, 65,
    1024, 2048} x s0 {none, random} x w {the model's range exp(-exp(-6 +-
-   1)), uniform (0.01, 1)} x chunk {16, 64}, plus n = 16 cases: y and S_T
-   within RWKV6_LIMIT * max(1, max|plain|) each, chunk 16 == chunk 64 bit
-   for bit; bf16 inputs and n = 32 refused.
+   1)), uniform (0.01, 1)} x chunk {1, 16, 64, 128}, plus n = 16 cases: y
+   and S_T within RWKV6_LIMIT * max(1, max|plain|) each; every chunk bit
+   for bit equal to chunk 1, and the first RWKV6_ROWS_ALONE rows of each
+   larger case, run alone (the launcher then splits a head over more
+   CTAs: 4 against 2 at B*H 128), bit for bit equal to the batch's; fails
+   unless some n = 64 case ran two splits; bf16 inputs and n = 32
+   refused.
 LM6. ``rwkv6_lm_vs_plain``  rwkv6-1.6b at full width cut to 2 layers, f32,
    one seeded set of weights (the time-mix groupnorm drawn from the seed in
    place of the reference's zeros, so that the scan shows in the logits):
@@ -161,8 +167,13 @@ LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
    computes the same function (``library_ms``: ``scaled_dot_product_attention``, ``rms_norm``) and
    the launches of ``serve_at_size``; ``rwkv6_scan`` at one prefill layer
    (B*H = 32, T = 1024) and one decode step (B*H = 128, T = 1) of
-   rwkv6-1.6b, with no library call (none computes the WKV recurrence)
-   and the launches of ``serve_rwkv6_at_size``; ``mamba_scan`` at one
+   rwkv6-1.6b, with no library call (none computes the WKV recurrence),
+   the launches of ``serve_rwkv6_at_size``, the CTAs a head its launch
+   took and, at prefill, ``bh_ms`` (its device ms at T = 1024 for B*H in
+   ``RWKV6_BH_MS``) with ``bh_ctas_per_head``, the split each point took:
+   the launcher gives a head 4 CTAs up to B*H 33 and 2 from 34 on the
+   H100's 132 SMs, so points of one split compare with each other;
+   ``mamba_scan`` at one
    prefill layer of jamba (B 1, T 1024, d_in 16 384, N 16), bound by the
    larger of its bytes, its f32 operations and its exps on the
    special-function units, with no library call and the launches of
@@ -201,6 +212,7 @@ from repro_torch.kernels import build as KB  # noqa: E402
 from repro_torch.kernels import lm_lib  # noqa: E402
 from repro_torch.kernels import lock_sim as K  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as K6  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     LIMIT as FLASH_LIMIT, bf16_ulp, excess as flash_excess, tensor_core_path)
 from repro_torch.kernels.flash_attention import \
@@ -1185,11 +1197,19 @@ SERVE_ARGV = ["--arch", "llama3.2-1b", "--requests", "16", "--slots", "4",
               "--prompt-max", "1025", "--policy", "mutable", "--seed", "0"]
 RWKV6_BHS = (1, 32, 128)
 RWKV6_TS = (1, 7, 64, 65, 1024, 2048)
-RWKV6_CHUNKS = (16, 64)
+RWKV6_CHUNKS = (1, 16, 64, 128)
+#: Rows of each larger case that K6 also runs alone: few enough that the
+#: launcher splits a head over more CTAs than in the batch.
+RWKV6_ROWS_ALONE = 8
+#: B*H at which ``bh_ms`` times K6 at T 1024: one row alone up to two rows
+#: an SM.  Within one split (``bh_ctas_per_head``), flat while the grid
+#: fits the SMs: one CTA's chain sets the time; past them it grows with
+#: the CTAs an SM takes in turn.
+RWKV6_BH_MS = (1, 8, 32, 66, 132, 264)
 #: K6 against its plain version: max|d| of y and of S_T each at most this
 #: times max(1, max|plain|).  The sums of a step run in another order
-#: (four partial sums over i, the bonus apart, FMAs), and the state carries
-#: each step's rounding into the next.
+#: (16 row segments added by a tree, the bonus apart, FMAs), and the state
+#: carries each step's rounding into the next.
 RWKV6_LIMIT = 1e-5
 MAMBA_BS = (1, 2)
 MAMBA_TS = (1, 7, 64, 65, 1024)
@@ -1641,12 +1661,25 @@ def phase_rwkv6_scan_vs_plain():
     worst = {"y": 0.0, "S_T": 0.0}
     excess = 0.0
     n_launch = 0
+    split_pairs = set()      # (n, CTAs a head alone, in the batch)
     before = LMW.launches
     for n, BH, T, with_s0, wr in cases:
         args = rwkv6_inputs(gen, BH, T, n, wr, with_s0)
         want = ref.rwkv6_scan_ref(*args)
-        outs = [LMW(*args, chunk=c) for c in RWKV6_CHUNKS]
+        outs = []
+        for c in RWKV6_CHUNKS:
+            outs.append(LMW(*args, chunk=c))
+            if c == 64:
+                batch_split = LMW.ctas_per_head
         n_launch += len(outs)
+        # the first rows alone, at the default chunk: the launcher splits
+        # a head over more CTAs for fewer rows (4 against 2 at BH 128)
+        alone = None
+        if BH > RWKV6_ROWS_ALONE:
+            alone = LMW(*(None if a is None else a[:RWKV6_ROWS_ALONE]
+                          for a in args))
+            split_pairs.add((n, LMW.ctas_per_head, batch_split))
+            n_launch += 1
         where = f"rwkv6_scan n={n} BH={BH} T={T} s0={with_s0} w={wr}"
         for (y, sT), c in zip(outs, RWKV6_CHUNKS):
             if (y.shape != want[0].shape or sT.shape != want[1].shape
@@ -1659,8 +1692,14 @@ def phase_rwkv6_scan_vs_plain():
                 worst[name] = max(worst[name],
                                   float((g - wv).abs().max()))
                 excess = max(excess, over)
-        if not all(torch.equal(a, b) for a, b in zip(outs[0], outs[1])):
+        if not all(torch.equal(a, b) for o in outs
+                   for a, b in zip(outs[0], o)):
             fail(f"{where}: chunk {RWKV6_CHUNKS} results differ")
+        if alone is not None and not all(
+                torch.equal(a, b[:RWKV6_ROWS_ALONE])
+                for a, b in zip(alone, outs[0])):
+            fail(f"{where}: the first {RWKV6_ROWS_ALONE} rows alone differ "
+                 f"from the batch's")
     torch.cuda.synchronize()
     refused = []
     for name, dtype, n in (("bf16", torch.bfloat16, 64),
@@ -1675,8 +1714,14 @@ def phase_rwkv6_scan_vs_plain():
         fail(f"rwkv6_scan: bf16 / n=32 not refused as expected ({refused})")
     if LMW.launches - before != n_launch:
         fail(f"rwkv6_scan: {LMW.launches - before} launches for {n_launch}")
+    if not any(n == 64 and a != b for n, a, b in split_pairs):
+        fail(f"rwkv6_scan: no case ran two splits of a head, CTAs a head "
+             f"(n, rows alone, batch): {sorted(split_pairs)}")
     emit({"phase": "rwkv6_scan_vs_plain", "cases": len(cases),
           "launches": n_launch, "chunks": list(RWKV6_CHUNKS),
+          "rows_alone": RWKV6_ROWS_ALONE,
+          "ctas_per_head_alone_vs_batch": sorted(split_pairs),
+          "rows_alone_bit_equal": True,
           "max_abs_err": worst, "limit": f"{RWKV6_LIMIT} * max(1, "
           f"max|plain|)", "max_err_over_limit": excess,
           "chunks_bit_equal": True, "refused": refused,
@@ -1752,6 +1797,16 @@ def rwkv6_entries(serve_launches, scan_err):
         # decay (5 n^2), and the bonus r.(u k) and its v (5 n)
         n_bytes = nbytes(args) + nbytes((y, sT))
         ops = BH * T * (5 * n * n + 5 * n)
+        ctas = LMW.ctas_per_head
+        extra = {}
+        if tag == "prefill":
+            # each point with the CTAs a head its launches took
+            extra["bh_ms"], extra["bh_ctas_per_head"] = {}, {}
+            for b in RWKV6_BH_MS:
+                a = rwkv6_inputs(gen, b, T, n, "model", False)
+                extra["bh_ms"][str(b)] = median_ms(lambda: LMW(*a), 20,
+                                                   hide_host=True)
+                extra["bh_ctas_per_head"][str(b)] = LMW.ctas_per_head
         out.append({"name": "rwkv6_scan" if tag == "prefill"
                     else "rwkv6_scan_decode", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
@@ -1763,8 +1818,8 @@ def rwkv6_entries(serve_launches, scan_err):
                     "plain_ms": median_ms(plain, 3), "library_ms": None,
                     **roofline(n_bytes, ops),
                     "shape": [BH, T, n], "dtype": "float32",
-                    "initial_state": with_s0,
-                    "path": f"serve_rwkv6_at_size {tag}"})
+                    "initial_state": with_s0, "ctas_per_head": ctas,
+                    "path": f"serve_rwkv6_at_size {tag}", **extra})
     return out
 
 
@@ -2122,13 +2177,14 @@ STREAM_MEM_MB = 1.5
 STREAM_TARGET_CS = 20
 
 
-#: Instruction classes of ``k1_sass``: a class counts the SASS
-#: instructions whose opcode (before the first ".") is in its set, or, for
-#: "int", starts with "I" (IMAD, IADD3, ISETP, IMNMX, IABS, I2F...).
+#: Instruction classes of ``k1_sass`` and ``k6_sass``: a class counts the
+#: SASS instructions whose opcode (before the first ".") is in its set, or,
+#: for "int", starts with "I" (IMAD, IADD3, ISETP, IMNMX, IABS, I2F...).
 SASS_CLASSES = {"vote": ("VOTE", "VOTEU"), "redux": ("REDUX",),
                 "shfl": ("SHFL",), "mufu": ("MUFU",), "call": ("CALL",),
                 "bssy": ("BSSY",), "bra": ("BRA",), "lds": ("LDS",),
-                "sts": ("STS",)}
+                "sts": ("STS",), "ffma": ("FFMA",), "fmul": ("FMUL",),
+                "bar": ("BAR",)}
 
 
 def sass_functions(path):
@@ -2179,30 +2235,57 @@ def ptxas_by_entry(log):
     return out
 
 
-def k1_sass(sim_build):
-    """K1 in the simulator library: per ``lock_sim_block_kernel<NS, OPEN>``
-    instantiation, static SASS counts by class (``sass_classes``),
-    ptxas's registers and spills, and the blocks and warps resident on an
-    SM (``lock_sim.block_occupancy``).  Fails unless all six
-    instantiations are there, or if ptxas spilled in one."""
-    funcs = sass_functions(sim_build.path)
-    regs = ptxas_by_entry(sim_build.log)
-    occ = K.block_occupancy(DEV)
+def kernel_sass(lib_build, kernel, tags, occupancy):
+    """Per instantiation of ``kernel`` in a built library: static SASS
+    counts by class (``sass_classes``), ptxas's registers and spills, and
+    the blocks and warps resident on an SM (``occupancy``, by name).
+    ``tags`` maps each instantiation's name to the part of its mangled name
+    that tells it apart.  Fails unless every instantiation is there once,
+    or if ptxas spilled in one."""
+    funcs = sass_functions(lib_build.path)
+    regs = ptxas_by_entry(lib_build.log)
     out = {}
-    for ns in (1, 2, 4):
-        for opn in (False, True):
-            name = f"<{ns}, {'true' if opn else 'false'}>"
-            tag = f"lock_sim_block_kernelILi{ns}ELb{int(opn)}E"
-            hit = [f for f in funcs if tag in f]
-            if len(hit) != 1:
-                fail(f"build: lock_sim_block_kernel{name} not in the SASS")
-            ptxas = regs.get(hit[0], [])
-            if any("spill" in ln and ", 0 bytes spill stores" not in ln
-                   for ln in ptxas):
-                fail(f"build: lock_sim_block_kernel{name} spills: {ptxas}")
-            out[name] = {**sass_classes(funcs[hit[0]]), "ptxas": ptxas,
-                         **occ[name]}
+    for name, tag in tags.items():
+        hit = [f for f in funcs if tag in f]
+        if len(hit) != 1:
+            fail(f"build: {kernel}{name} not in the SASS")
+        ptxas = regs.get(hit[0], [])
+        if any("spill" in ln and ", 0 bytes spill stores" not in ln
+               for ln in ptxas):
+            fail(f"build: {kernel}{name} spills: {ptxas}")
+        out[name] = {**sass_classes(funcs[hit[0]]), "ptxas": ptxas,
+                     **occupancy[name]}
     return out
+
+
+def k1_sass(sim_build):
+    """K1 in the simulator library: ``kernel_sass`` of the six
+    ``lock_sim_block_kernel<NS, OPEN>`` instantiations, resident blocks
+    from ``lock_sim.block_occupancy``."""
+    tags = {f"<{ns}, {'true' if opn else 'false'}>":
+            f"lock_sim_block_kernelILi{ns}ELb{int(opn)}E"
+            for ns in (1, 2, 4) for opn in (False, True)}
+    return kernel_sass(sim_build, "lock_sim_block_kernel", tags,
+                       K.block_occupancy(DEV))
+
+
+def k6_sass(lm_build):
+    """K6 in the LM library: ``kernel_sass`` of every ``rwkv6_scan_kernel<n,
+    cols>`` instantiation the library lists, with the blocks and warps
+    resident on an SM and the shared memory of one CTA at chunk 64 (the
+    default) and 128 (``rwkv6_scan.occupancy``; 0 blocks where a block
+    cannot hold it)."""
+    per = {}
+    for chunk in (64, 128):
+        for name, o in K6.occupancy(DEV, chunk).items():
+            per.setdefault(name, {}).update({
+                "threads": o["threads"],
+                f"blocks_per_sm_chunk{chunk}": o["blocks_per_sm"],
+                f"warps_per_sm_chunk{chunk}": o["warps_per_sm"],
+                f"smem_bytes_chunk{chunk}": o["smem_bytes"]})
+    tags = {name: "rwkv6_scan_kernelILi{}ELi{}E".format(
+        *name.strip("<>").split(", ")) for name in per}
+    return kernel_sass(lm_build, "rwkv6_scan_kernel", tags, per)
 
 
 def tensor_core_sass(lm_build):
@@ -2232,7 +2315,7 @@ def main():
     sim_build, lm_build = KB.build_libraries([K.LIBRARY, lm_lib.LIBRARY])
     # one "Compiling entry function" line names each instantiation
     # (lock_sim_block_kernel<NS, OPEN>, flash_attention_kernel<T, NJ>,
-    # flash_attention_kernel_sm90<HD>, rwkv6_scan_kernel<N>,
+    # flash_attention_kernel_sm90<HD>, rwkv6_scan_kernel<N, COLS>,
     # mamba_scan_kernel<N>, rmsnorm_kernel<T>), its registers and spills
     # follow
     ptxas = lambda b: [ln.strip() for ln in b.log.splitlines()
@@ -2247,6 +2330,7 @@ def main():
           "lm_ptxas": ptxas(lm_build),
           "k5_tensor_core_sass": tensor_core_sass(lm_build),
           "k1_sass": k1_sass(sim_build),
+          "k6_sass": k6_sass(lm_build),
           # the pair whose device math libraries must agree for phase 3
           "nvcc": KB.nvcc_release(), "torch": torch.__version__,
           "torch_cuda": torch.version.cuda})

@@ -62,6 +62,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "sm90_barrier.cuh"  // smem_addr, mbar_*: the ring's barriers
+
 namespace {
 
 constexpr int BM = 128;                 // query rows of a CTA
@@ -71,7 +73,6 @@ constexpr int CONSUMERS = 256;          // two warpgroups
 constexpr int THREADS = CONSUMERS + 32; // and the producer warp
 constexpr int ATOM = 64;                // bf16 columns of one 128-byte row
 constexpr float NEG_INF = -1e30f;
-constexpr long long WAIT_LIMIT = 1ll << 32;
 
 template <int HD>
 struct Tiles {
@@ -82,40 +83,6 @@ struct Tiles {
   static constexpr uint32_t SMEM =
       1024 + Q + 2 * STAGES * KV + 8 * (2 * STAGES + 1);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > WAIT_LIMIT) __trap();
-  }
-}
 
 // One box of a 3-d tensor map at (column, row, head) into shared memory;
 // its bytes count against the barrier's expected transactions.
@@ -344,7 +311,7 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap qmap,
       mbar_init(full + 8 * st, 1);
       mbar_init(empty + 8 * st, CONSUMERS / 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 

@@ -20,11 +20,14 @@ from . import build
 
 SOURCES = ("flash_attention.cu", "flash_attention_sm90.cu", "rwkv6_scan.cu",
            "mamba_scan.cu", "rmsnorm.cu")
+#: Headers the sources share: the Hopper staging ring's barriers and bulk
+#: copies (K5's tensor-core kernel, K6).
+HEADERS = ("sm90_barrier.cuh",)
 #: Compiler flags of the sources.  FMA contraction stays on: the kernels
 #: are held to their plain versions by a tolerance, not bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIBRARY = build.Library("lm", SOURCES, (), NVCC_FLAGS)
+LIBRARY = build.Library("lm", SOURCES, HEADERS, NVCC_FLAGS)
 
 #: dtype codes of the C entry points
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -33,12 +36,15 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 @functools.lru_cache(maxsize=None)
 def library():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return build.load(LIBRARY, {
+    cdll = build.load(LIBRARY, {
         "flash_attention_launch": [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                    i32, i32, i32, f32, f32, i32],
-        "rwkv6_scan_launch": [ptr] * 8 + [i32] * 4,
+        "rwkv6_scan_launch": [ptr] * 8 + [i32] * 4 + [ctypes.POINTER(i32)],
         "mamba_scan_launch": [ptr] * 7 + [i32] * 5,
         "rmsnorm_launch": [ptr, ptr, ptr, i32, i32, f32, i32]})
+    cdll.rwkv6_scan_occupancy.argtypes = [i32, ptr]  # no stream: no launch
+    cdll.rwkv6_scan_occupancy.restype = i32
+    return cdll
 
 
 def launch(name, device, *args):

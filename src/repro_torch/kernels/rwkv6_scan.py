@@ -6,12 +6,24 @@ of B*H, the state S (n, n) carried across the sequence,
 the exact diagonal recurrence in f32 (``csrc/rwkv6_scan.cu``; plain version
 :func:`repro_torch.kernels.ref.rwkv6_scan_ref`).
 
+The kernel splits a head's n columns over CTAs and each column's rows
+over the lanes of a warp (a lane keeping two columns), and stages
+``chunk`` steps of r, k, w and the CTA's columns of v at a time in a
+two-slot ring of shared memory (copies completed on mbarriers, one
+producer warp).  The launcher picks the split from the rows, the staged
+steps and the card's SM count (``plan_cols`` in the source), and
+``rwkv6_scan.ctas_per_head`` records the CTAs a head of the last launch
+took.  Neither the split nor ``chunk`` changes a bit of the result: every
+sum's order is fixed by n alone.
+
 Layout: r, k, v, w (BH, T, n); u (BH, n); s0 (BH, n, n) or None;
 :func:`repro_torch.kernels.ops.wkv` maps the model's (B, T, D) tensors to
 it and back.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -22,6 +34,28 @@ from . import lm_lib, ref
 HEAD_DIMS = (16, 64)
 #: Most time steps the kernel stages in shared memory at once.
 MAX_CHUNK = 128
+
+
+def occupancy(device=None, chunk: int = 64) -> dict:
+    """Blocks and warps of each instantiation resident on one SM of
+    ``device`` (default: the current CUDA device) at ``chunk``, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them at the
+    launch's block size and shared memory: ``{"<n, cols>": {"blocks_per_sm",
+    "warps_per_sm", "threads", "smem_bytes"}}`` (0 blocks where the shared
+    memory exceeds a block's).  Builds the library if needed; launches
+    nothing."""
+    out = (ctypes.c_int * 64)()
+    with torch.cuda.device(device):
+        err = lm_lib.library().rwkv6_scan_occupancy(int(chunk), out)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_occupancy: CUDA error {err}")
+    res = {}
+    for i in range(out[0]):
+        n, cols, blocks, nthreads, smem = out[1 + 5 * i: 6 + 5 * i]
+        res[f"<{n}, {cols}>"] = {"blocks_per_sm": blocks,
+                                 "warps_per_sm": blocks * nthreads // 32,
+                                 "threads": nthreads, "smem_bytes": smem}
+    return res
 
 
 def check_operands(r, k, v, w, u, s0, chunk):
@@ -70,9 +104,10 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 64):
 
     CPU tensors go through the plain version.  Other tensors are checked
     (:func:`check_operands`) and, on CUDA, launch the kernel on the current
-    stream, adding one to ``rwkv6_scan.launches``; there is no fallback.
-    ``chunk`` is how many steps the kernel stages at once; the result does
-    not depend on it."""
+    stream, adding one to ``rwkv6_scan.launches`` and setting
+    ``rwkv6_scan.ctas_per_head`` to the CTAs a head the launch took; there
+    is no fallback.  ``chunk`` is how many steps the kernel stages at once;
+    the result does not depend on it."""
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, w, u, s0)
     check_operands(r, k, v, w, u, s0, chunk)
@@ -82,12 +117,15 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 64):
     BH, T, n = r.shape
     y = torch.empty_like(r)
     sT = torch.empty((BH, n, n), dtype=torch.float32, device=r.device)
+    cols = ctypes.c_int(0)
     lm_lib.launch("rwkv6_scan", r.device, r.data_ptr(), k.data_ptr(),
                   v.data_ptr(), w.data_ptr(), u.data_ptr(),
                   None if s0 is None else s0.data_ptr(), y.data_ptr(),
-                  sT.data_ptr(), BH, T, n, int(chunk))
+                  sT.data_ptr(), BH, T, n, int(chunk), ctypes.byref(cols))
     rwkv6_scan.launches += 1
+    rwkv6_scan.ctas_per_head = n // cols.value
     return y, sT
 
 
 rwkv6_scan.launches = 0
+rwkv6_scan.ctas_per_head = None
