@@ -212,6 +212,8 @@ from repro_torch.kernels import build as KB  # noqa: E402
 from repro_torch.kernels import lm_lib  # noqa: E402
 from repro_torch.kernels import lock_sim as K  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import mamba_scan as K7  # noqa: E402
+from repro_torch.kernels import rmsnorm as K8  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as K6  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     LIMIT as FLASH_LIMIT, bf16_ulp, excess as flash_excess, tensor_core_path)
@@ -1187,9 +1189,18 @@ FLASH_SEQS = (1, 77, 1024, 2048)
 FLASH_GROUPS = (1, 4, 8)
 #: K8's (rows, D): odd ones, llama3.2-1b's at decode (4 slots) and
 #: prefill, and jamba's: D 8192 for its layer norms, 16384 for the norm
-#: inside each mamba mixer, at decode and at a 1024-token prefill.
+#: inside each mamba mixer, at decode and at a 1024-token prefill.  Then
+#: both sides of each switch of the launcher's threads a row
+#: (``csrc/rmsnorm.cu:plan_tpr``, on 132 SMs of 2048 threads): at D 2048
+#: (256 vectors a row in bf16) 256 threads a row up to 528 rows, 128 up
+#: to 1056, 64 up to 2112, then 32; D 16 384 / 16 392 (2048 / 2049 bf16
+#: vectors: 256 / 512 threads, eight vectors a thread; in f32 4096 / 4098
+#: vectors: 512 threads, and the kernel's loop over the vectors past 8 a
+#: thread); D 32 768 / 32 776 (the same in bf16).
 RMS_SHAPES = ((1, 64), (7, 80), (4, 2048), (4096, 2048), (3, 8192),
-              (4, 16384), (1024, 16384))
+              (4, 16384), (1024, 16384), (528, 2048), (529, 2048),
+              (1056, 2048), (1057, 2048), (2112, 2048), (2113, 2048),
+              (2, 16392), (3, 32768), (3, 32776))
 LM_VS_PLAIN_PROMPT = 300
 LM_VS_PLAIN_STEPS = 8
 SERVE_ARGV = ["--arch", "llama3.2-1b", "--requests", "16", "--slots", "4",
@@ -1213,14 +1224,27 @@ RWKV6_BH_MS = (1, 8, 32, 66, 132, 264)
 RWKV6_LIMIT = 1e-5
 MAMBA_BS = (1, 2)
 MAMBA_TS = (1, 7, 64, 65, 1024)
-MAMBA_DS = (48, 128, 16384)
+#: d 50 is not a multiple of 4: the kernel stages dt and x by 4-byte copies.
+MAMBA_DS = (48, 50, 128, 16384)
 MAMBA_NS = (4, 8, 16)
-MAMBA_CHUNKS = (16, 64)
+MAMBA_CHUNKS = (1, 16, 64, 128)
+#: Channels of each larger case that K7 also runs alone: few enough that
+#: the launcher gives a lane fewer channels than in the batch
+#: (``csrc/mamba_scan.cu:plan_split``).
+MAMBA_CHANNELS_ALONE = 128
+#: d at which ``d_ms`` times K7 (B 1, T 1024, N 16): one block, a quarter
+#: of the card, a jamba prefill layer, then about 2 and 4 times the
+#: blocks the card holds at once.  Flat while the grid fits the SMs: one
+#: block's chain sets the time; past them it grows with the work an SM
+#: takes.
+MAMBA_D_MS = (128, 4096, 16384, 33792, 67584)
 #: K7 against its plain version: max|d| of y and of s_T each at most this
-#: times max(1, max|plain|), K6's limit.  A step's exps are the accurate
-#: expf on both sides, the state update an FMA in the kernel, and the y sum
-#: runs in another order; the decay keeps each step's rounding from
-#: growing.
+#: times max(1, max|plain|), K6's limit.  The kernel's exp is one ex2 of dt
+#: times a * log2(e) (the scaled a rounded once to f32, the hardware ex2
+#: within 2 ulps, subnormal results flushed to 0) where the plain version
+#: takes expf(dt * a); the state update is an FMA, and the y sum runs in
+#: another order (a tree over pairs of states).  The decay keeps each
+#: step's rounding from growing.
 MAMBA_LIMIT = 1e-5
 #: Special-function-unit rate of the H100 SXM: 16 exp2 results a clock per
 #: SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
@@ -1625,7 +1649,9 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
     return {"k5": k5, "k5_tc": k5_tc,
             "k6_prefill": k6_pre, "k6_decode": k6 - k6_pre,
             "k7_prefill": k7_pre, "k7_decode": k7 - k7_pre,
-            "k8_prefill": k8_pre, "k8_decode": k8 - k8_pre}
+            "k8_prefill": k8_pre, "k8_decode": k8 - k8_pre,
+            "mamba_layers": n["mamba"], "forwards_prefill": args.requests,
+            "forwards_decode": len(step_ms)}
 
 
 def rwkv6_inputs(gen, BH, T, n, w_range, with_s0):
@@ -1849,7 +1875,12 @@ def mamba_excess(got, want):
 
 
 def phase_mamba_scan_vs_plain():
-    """K7 against mamba_scan_ref, both on the card."""
+    """K7 against mamba_scan_ref, both on the card: y and s_T within
+    MAMBA_LIMIT of the scale, every chunk of MAMBA_CHUNKS bit for bit, and
+    the first MAMBA_CHANNELS_ALONE channels of each larger case alone (the
+    launcher then takes another split: (lanes a channel, channels a
+    lane)) bit for bit equal to the batch's; fails unless some case ran
+    two splits."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(5)
     cases = [(B, T, d, N, dr) for B in MAMBA_BS for T in MAMBA_TS
@@ -1857,11 +1888,15 @@ def phase_mamba_scan_vs_plain():
     worst = {"y": 0.0, "s_T": 0.0}
     excess = 0.0
     n_launch = 0
+    splits = set()
     before = LMM.launches
     for B, T, d, N, dr in cases:
         args = mamba_inputs(gen, B, T, d, N, dr)
         want = ref.mamba_scan_ref(*args)
-        outs = [LMM(*args, chunk=c) for c in MAMBA_CHUNKS]
+        outs = []
+        for c in MAMBA_CHUNKS:
+            outs.append(LMM(*args, chunk=c))
+            split = (LMM.lanes_per_channel, LMM.channels_per_lane)
         n_launch += len(outs)
         where = f"mamba_scan B={B} T={T} d={d} N={N} dt={dr}"
         for (y, sT), c in zip(outs, MAMBA_CHUNKS):
@@ -1875,8 +1910,23 @@ def phase_mamba_scan_vs_plain():
                 worst[name] = max(worst[name],
                                   float((g - wv).abs().max()))
                 excess = max(excess, over)
-        if not all(torch.equal(a, b) for a, b in zip(outs[0], outs[1])):
+        if not all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(outs[0], o)):
             fail(f"{where}: chunk {MAMBA_CHUNKS} results differ")
+        if d > MAMBA_CHANNELS_ALONE:
+            k = MAMBA_CHANNELS_ALONE
+            dt, x, Bm, Cm, a = args
+            y, sT = LMM(dt[..., :k].contiguous(), x[..., :k].contiguous(),
+                        Bm, Cm, a[:k].contiguous(), chunk=MAMBA_CHUNKS[-1])
+            n_launch += 1
+            alone = (LMM.lanes_per_channel, LMM.channels_per_lane)
+            splits.add((split, alone))
+            if not (torch.equal(y, outs[-1][0][..., :k])
+                    and torch.equal(sT, outs[-1][1][:, :k])):
+                fail(f"{where}: its first {k} channels alone (split "
+                     f"{alone}) differ from the batch's ({split})")
+    if not any(a != b for a, b in splits):
+        fail(f"mamba_scan: no case ran two splits ({sorted(splits)})")
     torch.cuda.synchronize()
     refused = []
     for name, dtype, N in (("bf16", torch.bfloat16, 16),
@@ -1896,8 +1946,10 @@ def phase_mamba_scan_vs_plain():
           "launches": n_launch, "chunks": list(MAMBA_CHUNKS),
           "max_abs_err": worst, "limit": f"{MAMBA_LIMIT} * max(1, "
           f"max|plain|)", "max_err_over_limit": excess,
-          "chunks_bit_equal": True, "refused": refused,
-          "seconds": time.perf_counter() - t0})
+          "chunks_bit_equal": True,
+          "channels_alone": MAMBA_CHANNELS_ALONE,
+          "splits_batch_alone": sorted(splits), "splits_bit_equal": True,
+          "refused": refused, "seconds": time.perf_counter() - t0})
     return max(worst.values())
 
 
@@ -2026,14 +2078,18 @@ def phase_moe_lm_vs_plain():
 
 def mamba_entries(serve_launches, scan_err):
     """K7 at one prefill layer of jamba-1.5-large (B 1, T 1024, d_in
-    16 384, N 16), f32: device ms, with-host ms, plain ms, the bound; no
-    PyTorch call computes the selective scan, so no library ms."""
+    16 384, N 16), f32: device ms, with-host ms, plain ms, the bound, the
+    split the launcher took; ``d_ms`` at MAMBA_D_MS (B 1, T 1024) with the
+    channels a lane each point took, and T 128 (the shortest prompt the
+    serving phases send); no PyTorch call computes the selective scan, so
+    no library ms."""
     gen = torch.Generator(device=DEV).manual_seed(6)
     B, T, d, N = 1, 1024, 16384, 16
     args = mamba_inputs(gen, B, T, d, N, "model")
     kern = lambda: LMM(*args)
     plain = lambda: ref.mamba_scan_ref(*args)
     (y, sT), want = kern(), plain()
+    lanes, cpl = LMM.lanes_per_channel, LMM.channels_per_lane
     over = max(mamba_excess(y, want[0]), mamba_excess(sT, want[1]))
     if not over <= 1.0:
         fail(f"mamba_scan at the prefill shape: {over} x its limit")
@@ -2048,7 +2104,7 @@ def mamba_entries(serve_launches, scan_err):
     flops_ms = 6 * exps / FP32_OPS_PER_S * 1e3
     sfu_ms = exps / SFU_EXPS_PER_S * 1e3
     ops_ms = max(flops_ms, sfu_ms)
-    return [{"name": "mamba_scan", "route": "cuda",
+    entry = {"name": "mamba_scan", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
              "replaces": "src/repro/kernels/mamba_scan.py:79",
              "launches": serve_launches["k7_prefill"],
@@ -2061,8 +2117,22 @@ def mamba_entries(serve_launches, scan_err):
              "bytes_ms": bytes_ms, "operations_ms": ops_ms,
              "fp32_ops_ms": flops_ms, "sfu_exp_ms": sfu_ms, "exps": exps,
              "sfu_exps_per_s": SFU_EXPS_PER_S, "bytes": n_bytes,
+             "lanes_per_channel": lanes, "channels_per_lane": cpl,
              "shape": [B, T, d, N], "dtype": "float32",
-             "path": "serve_jamba_at_size prefill"}]
+             "path": "serve_jamba_at_size prefill"}
+    del args, y, sT, want
+    d_ms, d_cpl = [], []
+    for dd in MAMBA_D_MS:
+        args = mamba_inputs(gen, B, T, dd, N, "model")
+        d_ms.append(median_ms(lambda: LMM(*args), 20, hide_host=True))
+        d_cpl.append(LMM.channels_per_lane)
+        del args
+    args = mamba_inputs(gen, B, 128, d, N, "model")
+    entry.update({"d_ms_d": list(MAMBA_D_MS), "d_ms": d_ms,
+                  "d_channels_per_lane": d_cpl,
+                  "t128_ms": median_ms(lambda: LMM(*args), 20,
+                                       hide_host=True)})
+    return [entry]
 
 
 def flash_entry(name, path, launches, tc_launches, flash_err, BH, BKV, S,
@@ -2113,9 +2183,10 @@ def flash_entry(name, path, launches, tc_launches, flash_err, BH, BKV, S,
 def lm_entries(serve_launches, jamba_launches, flash_err, rms_err):
     """K5 at one prefill layer of llama3.2-1b (Sq = Sk = 1024, B*H = 32,
     B*KV = 8, hd 64) and of jamba (B*H = 64, B*KV = 8, hd 128), bf16,
-    causal; K8 at 1024 x 2048 (prefill) and 4 x 2048 (a decode step of
-    four slots), bf16: device ms, with-host ms, plain ms, the library
-    call's ms, the bound."""
+    causal; K8 in bf16 at llama's 1024 x 2048 (prefill) and 4 x 2048 (a
+    decode step of four slots), and jamba's at D 8192 (its layer norms)
+    and 16 384 (the norm inside each mamba mixer), 1024 rows and 4: device
+    ms, with-host ms, plain ms, the library call's ms, the bound."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(2)
     bf = torch.bfloat16
@@ -2126,10 +2197,23 @@ def lm_entries(serve_launches, jamba_launches, flash_err, rms_err):
                        jamba_launches["k5"], jamba_launches["k5_tc"],
                        flash_err, 64, 8, 1024, 128, gen)]
     src = "src/repro_torch/kernels/csrc/"
-    for rows, launches, tag in ((1024, serve_launches["k8_prefill"],
-                                 "prefill"),
-                                (4, serve_launches["k8_decode"], "decode")):
-        D = 2048
+    # jamba's norms a forward: at D 8192 two a layer and the final one, at
+    # D 16 384 one a mamba mixer
+    inner_pre, inner_dec = (jamba_launches["mamba_layers"] * jamba_launches[k]
+                            for k in ("forwards_prefill", "forwards_decode"))
+    shapes = (("rmsnorm", "serve_at_size prefill", 1024, 2048,
+               serve_launches["k8_prefill"]),
+              ("rmsnorm_decode", "serve_at_size decode", 4, 2048,
+               serve_launches["k8_decode"]),
+              ("rmsnorm_jamba", "serve_jamba_at_size prefill", 1024, 8192,
+               jamba_launches["k8_prefill"] - inner_pre),
+              ("rmsnorm_jamba_decode", "serve_jamba_at_size decode", 4, 8192,
+               jamba_launches["k8_decode"] - inner_dec),
+              ("rmsnorm_jamba_mamba", "serve_jamba_at_size prefill", 1024,
+               16384, inner_pre),
+              ("rmsnorm_jamba_mamba_decode", "serve_jamba_at_size decode", 4,
+               16384, inner_dec))
+    for name, path, rows, D, launches in shapes:
         x = torch.randn((rows, D), generator=gen, device=DEV).to(bf)
         w = (torch.randn((D,), generator=gen, device=DEV) * 0.1).to(bf)
         w1 = (1.0 + w.float()).to(bf)
@@ -2142,8 +2226,7 @@ def lm_entries(serve_launches, jamba_launches, flash_err, rms_err):
         if not float((d / bf16_ulp(want)).max()) <= 1.0:
             fail(f"rmsnorm at {rows} x {D}: over one bf16 ulp")
         n_bytes = 2 * nbytes((x,)) + nbytes((w,))
-        out.append({"name": "rmsnorm" if tag == "prefill"
-                    else "rmsnorm_decode",
+        out.append({"name": name,
                     "route": "cuda", "source": src + "rmsnorm.cu",
                     "replaces": "src/repro/kernels/rmsnorm.py:44",
                     "launches": launches,
@@ -2153,9 +2236,15 @@ def lm_entries(serve_launches, jamba_launches, flash_err, rms_err):
                     "plain_ms": median_ms(plain, 5),
                     "library_ms": median_ms(library, 20, hide_host=True),
                     **roofline(n_bytes, 4 * rows * D),
-                    "shape": [rows, D], "dtype": "bfloat16",
-                    "path": f"serve_at_size {tag}"})
+                    "shape": [rows, D], "dtype": "bfloat16", "path": path})
     return out
+
+
+def floor_ms():
+    """The floor of a launch timed by ``median_ms(..., hide_host=True)``:
+    an empty kernel of the LM library (``lm_empty_launch``)."""
+    return median_ms(lambda: lm_lib.launch("lm_empty", DEV), 20,
+                     hide_host=True)
 
 
 #: Fig. 3's depth (and the scan rollout's horizon, which follows it): 18
@@ -2177,14 +2266,16 @@ STREAM_MEM_MB = 1.5
 STREAM_TARGET_CS = 20
 
 
-#: Instruction classes of ``k1_sass`` and ``k6_sass``: a class counts the
+#: Instruction classes of ``kernel_sass`` (``k1_sass``, ``k6_sass``,
+#: ``k7_sass``, ``k8_sass``): a class counts the
 #: SASS instructions whose opcode (before the first ".") is in its set, or,
 #: for "int", starts with "I" (IMAD, IADD3, ISETP, IMNMX, IABS, I2F...).
 SASS_CLASSES = {"vote": ("VOTE", "VOTEU"), "redux": ("REDUX",),
                 "shfl": ("SHFL",), "mufu": ("MUFU",), "call": ("CALL",),
                 "bssy": ("BSSY",), "bra": ("BRA",), "lds": ("LDS",),
                 "sts": ("STS",), "ffma": ("FFMA",), "fmul": ("FMUL",),
-                "bar": ("BAR",)}
+                "bar": ("BAR",), "ldg": ("LDG",), "stg": ("STG",),
+                "ldgsts": ("LDGSTS",)}
 
 
 def sass_functions(path):
@@ -2288,6 +2379,40 @@ def k6_sass(lm_build):
     return kernel_sass(lm_build, "rwkv6_scan_kernel", tags, per)
 
 
+def k7_sass(lm_build):
+    """K7 in the LM library: ``kernel_sass`` of every ``mamba_scan_kernel<N,
+    channels a lane>`` instantiation the library lists (named ``<N, lanes a
+    channel, channels a lane>``), with the blocks and warps resident on an
+    SM and the shared memory of one block at chunk 64 (the default) and 128
+    (``mamba_scan.occupancy``)."""
+    per = {}
+    for chunk in (64, 128):
+        for name, o in K7.occupancy(DEV, chunk).items():
+            per.setdefault(name, {}).update({
+                "threads": o["threads"],
+                f"blocks_per_sm_chunk{chunk}": o["blocks_per_sm"],
+                f"warps_per_sm_chunk{chunk}": o["warps_per_sm"],
+                f"smem_bytes_chunk{chunk}": o["smem_bytes"]})
+    tags = {}
+    for name in per:
+        n, _, cpl = name.strip("<>").split(", ")
+        tags[name] = f"mamba_scan_kernelILi{n}ELi{cpl}EE"
+    return kernel_sass(lm_build, "mamba_scan_kernel", tags, per)
+
+
+def k8_sass(lm_build):
+    """K8 in the LM library: ``kernel_sass`` of every ``rmsnorm_kernel<T,
+    V>`` instantiation, with the blocks and warps resident on an SM at 256
+    threads a block and at its most (``rmsnorm.occupancy``)."""
+    occ = K8.occupancy(DEV)
+    mangled = {"float32": "f", "bfloat16": "13__nv_bfloat16"}
+    tags = {}
+    for name in occ:
+        dtype, v = name.strip("<>").split(", ")
+        tags[name] = f"rmsnorm_kernelI{mangled[dtype]}Li{v}EE"
+    return kernel_sass(lm_build, "rmsnorm_kernel", tags, occ)
+
+
 def tensor_core_sass(lm_build):
     """K5's tensor-core kernel in the LM library: per instantiation
     (``flash_attention_kernel_sm90<64>``, ``<128>``), its ``HGMMA``
@@ -2316,8 +2441,8 @@ def main():
     # one "Compiling entry function" line names each instantiation
     # (lock_sim_block_kernel<NS, OPEN>, flash_attention_kernel<T, NJ>,
     # flash_attention_kernel_sm90<HD>, rwkv6_scan_kernel<N, COLS>,
-    # mamba_scan_kernel<N>, rmsnorm_kernel<T>), its registers and spills
-    # follow
+    # mamba_scan_kernel<N, CPL>, rmsnorm_kernel<T, V>), its registers and
+    # spills follow
     ptxas = lambda b: [ln.strip() for ln in b.log.splitlines()
                        if "entry function" in ln or "registers" in ln
                        or "spill" in ln]
@@ -2331,6 +2456,8 @@ def main():
           "k5_tensor_core_sass": tensor_core_sass(lm_build),
           "k1_sass": k1_sass(sim_build),
           "k6_sass": k6_sass(lm_build),
+          "k7_sass": k7_sass(lm_build),
+          "k8_sass": k8_sass(lm_build),
           # the pair whose device math libraries must agree for phase 3
           "nvcc": KB.nvcc_release(), "torch": torch.__version__,
           "torch_cuda": torch.version.cuda})
@@ -2356,6 +2483,7 @@ def main():
     cfgs, steps, big, launches = phase_at_size(AT_SIZE_SCENARIOS)
     phase_stream_identity()
     arrs, _, ares, open_launches = phase_arrival_at_size()
+    floor = floor_ms()
     entries = (closed_entries(cfgs, steps, big, launches, scan_launches,
                               max_abs_err, step_abs_err)
                + open_entries(arrs, ares, open_launches, scan_launches,
@@ -2365,6 +2493,8 @@ def main():
                             rms_err)
                + rwkv6_entries(rwkv6_launches, scan_err)
                + mamba_entries(jamba_launches, mamba_err))
+    for entry in entries:
+        entry["floor_ms"] = floor
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True,

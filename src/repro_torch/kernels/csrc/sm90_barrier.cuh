@@ -2,7 +2,9 @@
 // kernels' staging rings are built from on Hopper (sm_90a):
 // flash_attention_sm90.cu (K5, tensor-map loads of K / V tiles) and
 // rwkv6_scan.cu (K6, 1-d bulk copies of a chunk's r, k, w, 16-byte
-// asynchronous copies of the CTA's columns of v).
+// asynchronous copies of the CTA's columns of v) and mamba_scan.cu (K7,
+// 16- or 4-byte asynchronous copies of a chunk's dt, x, B and C, waited
+// for by commit groups).
 //
 // A ring slot has a "full" barrier that completes when the bytes the
 // producer announced (mbar_expect_tx) have landed, and an "empty" barrier
@@ -81,6 +83,25 @@ __device__ __forceinline__ void copy16_async(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
                :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src))
                : "memory");
+}
+
+// One 4-byte asynchronous copy (cp.async, cached in L1 and L2); both
+// addresses 4-byte aligned.
+__device__ __forceinline__ void copy4_async(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
+// Close this thread's group of cp.async copies issued so far.
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until every committed group of this thread's cp.async copies has
+// landed in shared memory (other threads' copies need a barrier after).
+__device__ __forceinline__ void copies_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 // Arrive on the barrier once this thread's earlier cp.async copies have

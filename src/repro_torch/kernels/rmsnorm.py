@@ -2,15 +2,49 @@
 
 The port of the Pallas TPU kernel ``repro/kernels/rmsnorm.py``:
 ``y = x * rsqrt(mean(x^2) + eps) * (1 + w)`` over the last dim, f32 math,
-output in x's dtype, one pass over the rows (``csrc/rmsnorm.cu``; plain
-version :func:`repro_torch.kernels.ref.rmsnorm_ref`).
+output in x's dtype (``csrc/rmsnorm.cu``; plain version
+:func:`repro_torch.kernels.ref.rmsnorm_ref`).
+
+Bytes bound it on the H100 (x and w read, y written once); with few rows
+(a decode step) the launch itself is most of the time.  The kernel reads
+device memory once: a row's threads hold its 16-byte vectors of x and w
+in registers, every load in flight at once, reduce the squares
+(shuffles, then shared memory where a row spans warps) and write y from
+the registers.  The launcher picks the threads a row from
+the rows, D and the card's resident threads: a warp or a few a row when
+rows are many, a 256-thread block a row when they are few (a decode
+step), so that a launch costs one trip to memory beside its own floor.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import lm_lib, ref
+
+
+def occupancy(device=None) -> dict:
+    """Blocks and warps of each instantiation (dtype, V vectors a thread)
+    resident on one SM of ``device`` (default: the current CUDA device), as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them at 256
+    threads a block and at 512, the most a launch takes: ``{"<float32 |
+    bfloat16, V>": {"blocks_per_sm", "warps_per_sm", "blocks_per_sm_512",
+    "warps_per_sm_512"}}``.  Builds the library if needed; launches
+    nothing."""
+    out = (ctypes.c_int * 64)()
+    lm_lib.query("rmsnorm_occupancy", device, out)
+    names = {code: str(dt).removeprefix("torch.")
+             for dt, code in lm_lib.DTYPE_CODE.items()}
+    res = {}
+    for i in range(out[0]):
+        dtype, v, blocks, blocks_512 = out[1 + 4 * i: 5 + 4 * i]
+        res[f"<{names[dtype]}, {v}>"] = {
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * 256 // 32,
+            "blocks_per_sm_512": blocks_512,
+            "warps_per_sm_512": blocks_512 * 512 // 32}
+    return res
 
 
 def rmsnorm(x, w, eps: float = 1e-6):

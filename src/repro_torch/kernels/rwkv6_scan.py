@@ -45,10 +45,7 @@ def occupancy(device=None, chunk: int = 64) -> dict:
     memory exceeds a block's).  Builds the library if needed; launches
     nothing."""
     out = (ctypes.c_int * 64)()
-    with torch.cuda.device(device):
-        err = lm_lib.library().rwkv6_scan_occupancy(int(chunk), out)
-    if err != 0:
-        raise RuntimeError(f"rwkv6_scan_occupancy: CUDA error {err}")
+    lm_lib.query("rwkv6_scan_occupancy", device, int(chunk), out)
     res = {}
     for i in range(out[0]):
         n, cols, blocks, nthreads, smem = out[1 + 5 * i: 6 + 5 * i]

@@ -78,6 +78,28 @@ def test_header_parses():
         {p.name for p in K.CSRC.glob("*.cu")}
 
 
+def test_lm_library_binds_every_entry_point():
+    """Every ``extern "C"`` function the LM sources define has its ctypes
+    argument types in ``lm_lib``: the launches (a stream last) in
+    SIGNATURES, the launch-free queries in QUERIES; a function another LM
+    source declares is that source's own callee (K5's tensor-core launch),
+    not bound.  ``lm_lib`` binds nothing the sources lack."""
+    defined, declared = set(), set()
+    for name in lm_lib.SOURCES:
+        src = (K.CSRC / name).read_text()
+        for fn, end in re.findall(r'extern "C" int (\w+)\([^;{]*\)\s*([;{])',
+                                  src):
+            (defined if end == "{" else declared).add(fn)
+    assert declared <= defined
+    assert defined - declared == set(lm_lib.SIGNATURES) | set(lm_lib.QUERIES)
+    assert set(lm_lib.SIGNATURES).isdisjoint(lm_lib.QUERIES)
+    assert all(fn.endswith("_launch") for fn in lm_lib.SIGNATURES)
+    assert not any(fn.endswith("_launch") for fn in lm_lib.QUERIES)
+    assert {"mamba_scan_occupancy", "rmsnorm_occupancy",
+            "rwkv6_scan_occupancy"} <= set(lm_lib.QUERIES)
+    assert "lm_empty_launch" in lm_lib.SIGNATURES
+
+
 @pytest.mark.parametrize("name,value", [
     ("ST_NCS", P.NCS), ("ST_CS", P.CS), ("ST_SPIN", P.SPIN),
     ("ST_SLEEP", P.SLEEP_ST), ("ST_WAKING", P.WAKING), ("ST_DONE", P.DONE),
