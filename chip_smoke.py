@@ -150,7 +150,26 @@ LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
    target_cs=50, CellReduce over the 8 (arrival, load) cells) through the
    open kernel: seconds, config-steps/s, chunks, launches, host and device
    seconds, peak bytes, the device's busy share, the cells' winners.
-12. ``kernels`` the contract line: per kernel and variant, the time per
+12. ``diagrams``  the sweep layer, ``repro_torch.bench``, through the
+   kernel: each of the six diagram writers' ``main`` at the reference's
+   one-device defaults (target_cs 150; oracle 200 scenarios x 23
+   variants, discipline 200 x 15, workload 100 x 4 x 15, arrival 50 x 8 x
+   15 through K1-open, fault 100 x 5 x 15, park 50 x 4 x 15), the
+   discipline writer with its ``--refine`` lattice (16 x 12, factor 3),
+   reports into a temporary directory; then the fault writer at 1334
+   scenarios (100 050 configs) streamed, the phase cells' wins
+   accumulated on the card.  Per grid: configs, ``n_steps``, seconds of
+   the writer's ``main`` (the discipline writer's with its lattice) and
+   of its sweep calls on the host clock ending in ``synchronize``,
+   launches, chunks, config-steps a second over the sweep seconds, the
+   winner of each phase cell; for the streamed grid its peak bytes and
+   host plan + encode seconds.  Fails unless each grid launched its
+   kernel variant and no other, every result validates, the wins of each
+   row of cells hold every scenario once (each refine pass: every point
+   once), every CSV has a line per cell and every Markdown report is
+   non-empty, and the streamed grid's on-card wins equal the host fold of
+   its own per-config completed / t_end in f32.
+13. ``kernels`` the contract line: per kernel and variant, the time per
    launch at its largest main-path shape (CUDA events, median, with the
    card kept busy while the host enqueues the launch), the plain
    version's time at the same shape, the roofline bound (the simulator
@@ -160,7 +179,9 @@ LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
    rows for w = 4 ... 40 warps an SM: flat up to the occupancy limit means
    latency-bound, growing from small w issue-bound), and the launches
    its path made (the block kernel in the sweeps, the step pair in the
-   scan rollouts, ``oracle_step`` on no path: 0); ``flash_attention`` at
+   scan rollouts, ``oracle_step`` on no path: 0; the block kernel's two
+   entries also carry ``diagrams_launches``, its launches in the
+   ``diagrams`` phase); ``flash_attention`` at
    one prefill layer of llama3.2-1b and of jamba (hd 64 and 128, both on
    the tensor cores, each with its own bound and SDPA time) and
    ``rmsnorm`` at a prefill and a decode shape, with the PyTorch call that
@@ -184,7 +205,10 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import importlib
+import io
 import json
 import os
 import subprocess
@@ -203,6 +227,7 @@ if not torch.cuda.is_available():
                      "runs on the card only\n")
     sys.exit(1)
 
+from repro_torch.bench import sweep as B  # noqa: E402
 from repro_torch.configs import catalog  # noqa: E402
 from repro_torch.core import policy as P  # noqa: E402
 from repro_torch.core import stream as S  # noqa: E402
@@ -954,6 +979,217 @@ def phase_at_size(n_scenarios):
           "kernel_device_seconds": kernel_busy if traced else None,
           "device_idle_share": 1.0 - busy / s_again if traced else None})
     return cfgs, steps, max(buckets, key=len), launches
+
+
+class SweepCalls:
+    """While entered, records every outermost ``simulate_batch`` and
+    ``sweep_stream`` call the grids make: its result (per-config steps;
+    a stream's wins, chunks and quarantine), its seconds on the host clock
+    between two ``torch.cuda.synchronize()``, and the K1 / K1-open
+    launches it made.  The grids' result dicts summarize these away."""
+
+    def __enter__(self):
+        self.calls, self._real = [], (xdes.simulate_batch, S.sweep_stream)
+        depth = [0]
+
+        def watched(fn):
+            def run(*a, **k):
+                outer = depth[0] == 0
+                if outer:
+                    torch.cuda.synchronize()
+                    l0 = (K.lock_sim_block.launches,
+                          K.lock_sim_block.open_launches)
+                    t0 = time.perf_counter()
+                depth[0] += 1
+                try:
+                    res = fn(*a, **k)
+                finally:
+                    depth[0] -= 1
+                if outer:
+                    torch.cuda.synchronize()
+                    self.calls.append({
+                        "result": res,
+                        "seconds": time.perf_counter() - t0,
+                        "launches": K.lock_sim_block.launches - l0[0],
+                        "open_launches":
+                            K.lock_sim_block.open_launches - l0[1]})
+                return res
+            return run
+
+        xdes.simulate_batch = watched(self._real[0])
+        S.sweep_stream = watched(self._real[1])
+        return self
+
+    def __exit__(self, *exc):
+        xdes.simulate_batch, S.sweep_stream = self._real
+
+
+def run_writer(name, argv, out_dir):
+    """One diagram writer's ``main`` on the card (its tables to stdout
+    kept out of this script's output): (result, seconds on the host
+    clock ending in ``synchronize``, launches, open launches, the
+    recorded calls), the launch counts set to 0 just before."""
+    mod = importlib.import_module(f"repro_torch.bench.{name}")
+    torch.cuda.synchronize()
+    K.lock_sim_block.launches = K.lock_sim_block.open_launches = 0
+    with SweepCalls() as rec, contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        result = mod.main(argv + ["--out",
+                                  os.path.join(out_dir, f"{name}.json")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return (result, seconds, K.lock_sim_block.launches,
+            K.lock_sim_block.open_launches, rec.calls)
+
+
+def call_summary(calls):
+    """Launches, chunks and config-steps of recorded sweep calls."""
+    steps = sum(int(c["result"].steps_run.astype(np.int64).sum())
+                for c in calls)
+    return {"launches": sum(c["launches"] + c["open_launches"]
+                            for c in calls),
+            "chunks": sum(getattr(c["result"], "n_chunks", 1)
+                          for c in calls),
+            "config_steps": steps,
+            "sweep_seconds": sum(c["seconds"] for c in calls)}
+
+
+def check_diagram(name, result, launches, open_launches, calls, out_dir,
+                  configs=None, streamed=False):
+    """The checks of one writer's run (at ``configs``, default its
+    one-device size); returns its phase cells' winners."""
+    stem, axes = DIAGRAMS[name]
+    meta, phase = result["meta"], result["phase"]
+    where = f"diagrams {name}" + (" streamed" if streamed else "")
+    opened = name == "arrival_diagram"
+    if (open_launches <= 0 or launches != 0) if opened else \
+            (launches <= 0 or open_launches != 0):
+        fail(f"{where}: {launches} closed / {open_launches} open launches")
+    if meta["n_configs"] != (configs or DIAGRAM_CONFIGS[name]) or \
+            meta["streamed"] is not streamed or len(calls) != 1:
+        fail(f"{where}: {meta['n_configs']} configs, streamed "
+             f"{meta['streamed']}, {len(calls)} sweep calls")
+    for call in calls:
+        call["result"].validate(where)
+        if getattr(call["result"], "failures", None):
+            fail(f"{where}: quarantined {call['result'].failures[:3]}")
+    if sum(c["n"] for c in phase) != meta["n_configs"] // meta["n_variants"]:
+        fail(f"{where}: the cells' wins miss a reduction group")
+    per_row = {}
+    for c in phase:
+        row = tuple(c[a] for a in axes if a not in ("cs", "sub", "wake"))
+        per_row[row] = per_row.get(row, 0) + c["n"]
+    if set(per_row.values()) != {meta["n_scenarios"]}:
+        fail(f"{where}: wins per row {per_row}, not "
+             f"{meta['n_scenarios']} each")
+    with open(os.path.join(out_dir, stem + ".csv")) as f:
+        rows = f.read().count("\n")
+    if rows != 1 + len(phase):
+        fail(f"{where}: {rows} CSV lines for {len(phase)} cells")
+    if os.path.getsize(os.path.join(out_dir, stem + ".md")) == 0:
+        fail(f"{where}: empty Markdown report")
+    key = lambda c: "/".join(str(c[a]) for a in axes)
+    winners = {key(c): c["winner"] for c in phase}
+    if opened:
+        winners = {"throughput": winners,
+                   "p95": {key(c): c["lat_winner"] for c in phase}}
+    return winners
+
+
+def phase_diagrams():
+    """The sweep layer on the card: the six writers' CLIs at the
+    reference's one-device defaults (the discipline writer with its
+    ``--refine`` lattice), then the fault grid at 100 050 configs
+    streamed with the phase cells' wins on the card."""
+    t_phase = time.perf_counter()
+    grids = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name in DIAGRAMS:
+            argv = ["--refine"] if name == "discipline_diagram" else []
+            result, seconds, launches, open_launches, calls = run_writer(
+                name, argv, out_dir)
+            # the discipline writer's later calls are its refine passes
+            grid_calls = calls[:1] if name == "discipline_diagram" else calls
+            winners = check_diagram(name, result, launches - sum(
+                c["launches"] for c in calls[1:]), open_launches,
+                grid_calls, out_dir)
+            rec = {"configs": result["meta"]["n_configs"],
+                   "n_steps": result["meta"]["n_steps"],
+                   "seconds": seconds, **call_summary(grid_calls)}
+            rec["config_steps_per_s"] = (rec["config_steps"]
+                                         / rec["sweep_seconds"])
+            rec["winners"] = winners
+            grids[name] = rec
+            if name == "discipline_diagram":
+                grids["refine"] = refine_record(result["refine"], calls[1:])
+
+        # (b) the fault grid at 100 050 configs, streamed
+        t0 = time.perf_counter()
+        cols = catalog.lock_fault_columns(n_scenarios=FAULT_STREAM_SCENARIOS)
+        arrs = P.encode_columns(cols)
+        arrs["dt"], _ = xdes.plan_schedule_columns(cols, 150)
+        host_seconds = time.perf_counter() - t0    # what the sweep repeats
+        torch.cuda.reset_peak_memory_stats()
+        result, seconds, launches, open_launches, calls = run_writer(
+            "fault_diagram", ["--scenarios", str(FAULT_STREAM_SCENARIOS),
+                              "--stream", "on"], out_dir)
+        peak = torch.cuda.max_memory_allocated()
+        C = len(cols["lock"])
+        winners = check_diagram("fault_diagram", result, launches,
+                                open_launches, calls, out_dir,
+                                configs=100_050, streamed=True)
+        # the on-card wins against the host fold of this run's own
+        # per-config completed / t_end, in the card's f32 arithmetic
+        res, V = calls[0]["result"], result["meta"]["n_variants"]
+        feats = B._scenario_feats(catalog.sample_scenario_columns(
+            FAULT_STREAM_SCENARIOS))
+        uniq, cell_ids = B._phase_cells(
+            [(fl, ft["cs"], ft["sub"]) for ft in feats
+             for fl in catalog.LOCK_FAULTS])
+        thr = res.completed.astype(np.float32) / np.maximum(
+            res.t_end, np.float32(1e-30))
+        host = B._host_wins(thr, len(uniq), cell_ids, V)
+        if not np.array_equal(res.wins, host):
+            fail(f"diagrams fault streamed: on-card wins differ from the "
+                 f"host fold in {int((res.wins != host).sum())} entries")
+        rec = {"configs": C, "n_steps": result["meta"]["n_steps"],
+               "seconds": seconds, **call_summary(calls),
+               "chunk_size": res.chunk_size, "budget_mb": res.budget_mb,
+               "peak_bytes": peak, "host_plan_encode_seconds": host_seconds,
+               "wins_equal_host_fold": True}
+        rec["config_steps_per_s"] = rec["config_steps"] / rec["sweep_seconds"]
+        rec["winners"] = winners
+        grids["fault_streamed"] = rec
+    emit({"phase": "diagrams", "seconds": time.perf_counter() - t_phase,
+          "target_cs": 150, "grids": grids})
+    opened = grids["arrival_diagram"]["launches"]
+    return sum(g["launches"] for g in grids.values()) - opened, opened
+
+
+def refine_record(refine, calls):
+    """The refine lattice's passes: each pass's wins hold every point of
+    that pass once."""
+    meta = refine["meta"]
+    points = [meta["n_coarse"]] + ([meta["n_dense"]] if meta["n_dense"]
+                                   else [])
+    if len(calls) != len(points):
+        fail(f"diagrams refine: {len(calls)} passes for {points} points")
+    for call, n in zip(calls, points):
+        call["result"].validate("diagrams refine")
+        if call["result"].failures:
+            fail(f"diagrams refine: quarantined "
+                 f"{call['result'].failures[:3]}")
+        if int(call["result"].wins.sum()) != n or \
+                call["result"].wins.shape[0] != n:
+            fail(f"diagrams refine: {int(call['result'].wins.sum())} wins "
+                 f"for {n} points")
+        if call["launches"] <= 0 or call["open_launches"] != 0:
+            fail(f"diagrams refine: {call['launches']} launches")
+    rec = {"configs": meta["n_configs"], "coarse_points": meta["n_coarse"],
+           "dense_points": meta["n_dense"],
+           "dense_dropped": meta["n_dense_dropped"], **call_summary(calls)}
+    rec["config_steps_per_s"] = rec["config_steps"] / rec["sweep_seconds"]
+    return rec
 
 
 #: Cycles the card spins before a timed kernel launch (about 2.5 ms), long
@@ -2264,6 +2500,28 @@ ARRIVAL_VARIANTS = 15
 STREAM_SCENARIOS = 6
 STREAM_MEM_MB = 1.5
 STREAM_TARGET_CS = 20
+#: The six diagram writers of ``repro_torch.bench`` the ``diagrams`` phase
+#: runs at the reference's one-device defaults (target_cs 150), each with
+#: the stem of its CSV / Markdown report and the axes of its phase cells
+#: (a cell is one value of each; the cells of one value of the axes
+#: outside (cs, sub, wake) hold every scenario once).
+DIAGRAMS = {
+    "oracle_ablation": ("oracle_phase_diagram", ("cs", "sub", "wake")),
+    "discipline_diagram": ("discipline_phase_diagram",
+                           ("cs", "sub", "wake")),
+    "workload_diagram": ("workload_phase_diagram", ("workload", "cs", "sub")),
+    "arrival_diagram": ("arrival_phase_diagram", ("arrival", "rho")),
+    "fault_diagram": ("fault_phase_diagram", ("fault", "cs", "sub")),
+    "park_diagram": ("park_phase_diagram", ("park_cost", "cs", "sub")),
+}
+#: Configs of each at those defaults: 200 x 23, 200 x 15, 100 x 4 x 15,
+#: 50 x 8 x 15, 100 x 5 x 15, 50 x 4 x 15.
+DIAGRAM_CONFIGS = {"oracle_ablation": 4600, "discipline_diagram": 3000,
+                   "workload_diagram": 6000, "arrival_diagram": 6000,
+                   "fault_diagram": 7500, "park_diagram": 3000}
+#: The streamed fault grid: 1334 scenarios x 5 fault rows x 15 variants =
+#: 100 050 configs, the phase cells' wins accumulated on the card.
+FAULT_STREAM_SCENARIOS = 1334
 
 
 #: Instruction classes of ``kernel_sass`` (``k1_sass``, ``k6_sass``,
@@ -2483,6 +2741,7 @@ def main():
     cfgs, steps, big, launches = phase_at_size(AT_SIZE_SCENARIOS)
     phase_stream_identity()
     arrs, _, ares, open_launches = phase_arrival_at_size()
+    diagram_launches = phase_diagrams()
     floor = floor_ms()
     entries = (closed_entries(cfgs, steps, big, launches, scan_launches,
                               max_abs_err, step_abs_err)
@@ -2495,6 +2754,11 @@ def main():
                + mamba_entries(jamba_launches, mamba_err))
     for entry in entries:
         entry["floor_ms"] = floor
+        # the sweep layer's path: K1 in the closed grids, K1-open in the
+        # arrival grid (phase diagrams, its own counts)
+        if entry["name"] in ("lock_sim_block", "lock_sim_block_open"):
+            entry["diagrams_launches"] = diagram_launches[
+                entry["name"] == "lock_sim_block_open"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True,

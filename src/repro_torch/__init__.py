@@ -7,11 +7,15 @@ and ``numpy`` only, and nothing of ``repro``.  Ported so far:
   rollouts (``repro_torch.core.xdes.simulate_batch``) and its streamed
   sweep (``repro_torch.core.stream.sweep_stream``), through the
   hand-written CUDA kernels of ``repro_torch.kernels.lock_sim``;
-* serving a dense decoder (``repro_torch.launch.serve``:
-  ``repro_torch.serve.ContinuousBatcher`` over
-  ``repro_torch.serve.DecodeEngine`` over ``repro_torch.models``), its
-  prefill attention and every RMSNorm through the hand-written CUDA kernels
-  ``repro_torch.kernels.flash_attention`` and ``repro_torch.kernels.rmsnorm``.
+* the sweep layer on top of it: the grids and the six phase-diagram
+  writers with their CLIs (``repro_torch.bench``), and the
+  scheduler-policy sweep (``repro_torch.serve.xdes_policy_sweep``);
+* serving (``repro_torch.launch.serve``: ``repro_torch.serve.
+  ContinuousBatcher`` over ``repro_torch.serve.DecodeEngine`` over
+  ``repro_torch.models``) of the dense decoders, rwkv6, jamba (mamba,
+  attention and MoE layers) and the MoE decoders, through the
+  hand-written CUDA kernels ``repro_torch.kernels.flash_attention``,
+  ``rwkv6_scan``, ``mamba_scan`` and ``rmsnorm``.
 
 Entry points run on the card (``device=None``) and raise without one; pass
 ``device="cpu"`` for the plain PyTorch versions.

@@ -1,18 +1,20 @@
 """Lock-simulation sweep specs of the PyTorch port (paper Fig. 3 + the
-beyond-paper scenario, oracle, discipline x oracle and open-loop arrival
-sweeps, with the array-native column twins the streamed sweep takes).
+beyond-paper scenario, oracle, discipline x oracle, workload, fault,
+park-cost and open-loop arrival sweeps, with the array-native column twins
+the streamed sweep takes).
 
 The port's own copy of the lock part of ``repro/configs/catalog.py``: each
 spec is a list of :class:`repro_torch.core.policy.SimConfig` rows for one
 :func:`repro_torch.core.xdes.simulate_batch` call.  Row order and the
 :func:`sample_scenarios` draw order are part of the contract (seeds are
-stable across sweeps and equal to the reference's).
+stable across sweeps and equal to the reference's).  The grids of
+:mod:`repro_torch.bench.sweep` build on them.
 
 Beside them, the model catalog of the reference file: the ten registered
 architectures (exact configs from public literature / HF configs, full
 size) and :func:`tiny`, the reduced smoke-test variant of the same family.
-Only the dense attention stacks run in the port so far
-(:mod:`repro_torch.models`).
+The dense, rwkv6, mamba (jamba) and MoE stacks run in the port
+(:mod:`repro_torch.models`); the encoder-decoder does not yet.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.policy import (ARRIVAL_IDS, DEFAULT_ALPHA,
-                                     DEFAULT_SPIN_BUDGET, ORACLE_IDS,
-                                     POLICY_IDS, POLICY_ROW, QUEUE_MAX,
-                                     WORKLOAD_IDS, SimConfig)
+                                     DEFAULT_SPIN_BUDGET, FAULT_IDS,
+                                     ORACLE_IDS, POLICY_IDS, POLICY_ROW,
+                                     QUEUE_MAX, WORKLOAD_IDS, SimConfig)
 
 from .base import (AttentionConfig, LayerSpec, MambaConfig, ModelConfig,
                    MoEConfig, RWKV6Config, register)
@@ -398,6 +400,11 @@ def lock_discipline_sweep(n_scenarios: int = 200, seed: int = 0,
     ]
 
 
+# -- workload x discipline x oracle diagram grid ---------------------------
+#: Workload axis of the "which lock wins under which workload" diagram:
+#: every WORKLOAD_ROW (repro_torch.core.policy) is represented.
+LOCK_WORKLOADS = ("constant", "bursty", "hetero", "jitter")
+
 
 def lock_workload_params(sc: dict) -> dict:
     """Scenario-scaled workload knobs: the bursty ON/OFF cycle is
@@ -407,6 +414,107 @@ def lock_workload_params(sc: dict) -> dict:
     timescale; spread and burst factors stay at the registry defaults."""
     return dict(wl_period=16.0 * (sc["cs_hi"] + sc["ncs_hi"]),
                 wl_duty=0.25, wl_burst=8.0, wl_spread=4.0)
+
+
+def lock_workload_variants(workloads=LOCK_WORKLOADS,
+                           disciplines=LOCK_DISCIPLINE_SET,
+                           oracles=LOCK_ORACLES) -> list[dict]:
+    """The ``(workload, discipline, oracle)`` variant axis of the workload
+    diagram: the discipline x oracle variants (windowed-row pruning of
+    :func:`lock_discipline_variants`) replicated under every workload
+    row, workload-major."""
+    return [dict(workload=w, **v)
+            for w in workloads
+            for v in lock_discipline_variants(disciplines, oracles)]
+
+
+def lock_workload_sweep(n_scenarios: int = 100, seed: int = 0,
+                        workloads=LOCK_WORKLOADS,
+                        disciplines=LOCK_DISCIPLINE_SET,
+                        oracles=LOCK_ORACLES) -> list[SimConfig]:
+    """The full workload x discipline x oracle product as one flat batch
+    for a single :func:`repro_torch.core.xdes.simulate_batch` call.
+
+    Row order is scenario-major, then workload, then (discipline, oracle)
+    variant — reshape to ``(n_scenarios, n_workloads, n_variants)``.
+    Scenarios follow the :func:`sample_scenarios` seed contract, so every
+    workload row sees the same machines scenario-by-scenario and results
+    are comparable cell-by-cell with the discipline diagram."""
+    disc_variants = lock_discipline_variants(disciplines, oracles)
+    return [
+        SimConfig(v["lock"], threads=sc["threads"], cores=sc["cores"],
+                  cs=(0.0, sc["cs_hi"]), ncs=(0.0, sc["ncs_hi"]),
+                  wake_latency=sc["wake"],
+                  alpha=sc["contention"] * DEFAULT_ALPHA[v["lock"]],
+                  seed=sc["seed"], oracle=v["oracle"], workload=w,
+                  **lock_workload_params(sc))
+        for sc in sample_scenarios(n_scenarios, seed)
+        for w in workloads
+        for v in disc_variants
+    ]
+
+
+# -- fault x discipline x oracle diagram grid ------------------------------
+#: Fault rows of the interference diagram: every FAULT_ROW
+#: (repro_torch.core.policy) is represented — the benign baseline plus
+#: lock-holder preemption, CPU oversubscription, lost wake-ups with
+#: timeout recovery, and timer jitter.
+LOCK_FAULTS = ("none", "preempt", "oversub", "lostwake", "jitter")
+#: Per-row fault intensity: the probability/fraction knob of each row at
+#: a level where the spin-vs-sleep ranking visibly flips (preempt/oversub
+#: strong enough to starve spinners, wake faults frequent enough to tax
+#: sleepers) without collapsing every discipline to zero throughput.
+LOCK_FAULT_RATES = {"none": 0.0, "preempt": 0.6, "oversub": 0.6,
+                    "lostwake": 0.5, "jitter": 0.5}
+
+
+def lock_fault_params(sc: dict) -> dict:
+    """Scenario-scaled fault timescale: the off-CPU / recovery window is
+    ``4 x (cs_hi + ncs_hi)`` — ~8 mean CS+NCS rounds, long enough that a
+    preempted holder visibly stalls its waiters, short enough that every
+    auto-planned horizon (~``target_cs/2`` rounds) samples dozens of
+    windows."""
+    return dict(fault_scale=4.0 * (sc["cs_hi"] + sc["ncs_hi"]))
+
+
+def lock_fault_variants(faults=LOCK_FAULTS,
+                        disciplines=LOCK_DISCIPLINE_SET,
+                        oracles=LOCK_ORACLES) -> list[dict]:
+    """The ``(fault, discipline, oracle)`` variant axis of the fault
+    diagram: the discipline x oracle variants (windowed-row pruning of
+    :func:`lock_discipline_variants`) replicated under every fault row,
+    fault-major."""
+    return [dict(fault=f, fault_rate=LOCK_FAULT_RATES[f], **v)
+            for f in faults
+            for v in lock_discipline_variants(disciplines, oracles)]
+
+
+def lock_fault_sweep(n_scenarios: int = 100, seed: int = 0,
+                     faults=LOCK_FAULTS,
+                     disciplines=LOCK_DISCIPLINE_SET,
+                     oracles=LOCK_ORACLES) -> list[SimConfig]:
+    """The full fault x discipline x oracle product as one flat batch for
+    a single :func:`repro_torch.core.xdes.simulate_batch` call.
+
+    Row order is scenario-major, then fault, then (discipline, oracle)
+    variant — reshape to ``(n_scenarios, n_faults, n_variants)``.
+    Scenarios follow the :func:`sample_scenarios` seed contract, so every
+    fault row sees the same machines scenario-by-scenario and results are
+    comparable cell-by-cell with the discipline diagram (the ``none`` row
+    IS the discipline diagram's benign machine)."""
+    disc_variants = lock_discipline_variants(disciplines, oracles)
+    return [
+        SimConfig(v["lock"], threads=sc["threads"], cores=sc["cores"],
+                  cs=(0.0, sc["cs_hi"]), ncs=(0.0, sc["ncs_hi"]),
+                  wake_latency=sc["wake"],
+                  alpha=sc["contention"] * DEFAULT_ALPHA[v["lock"]],
+                  seed=sc["seed"], oracle=v["oracle"], fault=f,
+                  fault_rate=LOCK_FAULT_RATES[f],
+                  **lock_fault_params(sc))
+        for sc in sample_scenarios(n_scenarios, seed)
+        for f in faults
+        for v in disc_variants
+    ]
 
 
 # -- arrival-rate x discipline diagram grid (open loop) --------------------
@@ -476,6 +584,52 @@ def lock_arrival_sweep(n_scenarios: int = 50, seed: int = 0,
         for v in variants
     ]
 
+
+# -- park-cost x discipline x oracle diagram grid (M:N environments) -------
+#: Park-cost axis of the M:N lightweight-thread diagram: how expensive is
+#: one park/unpark round trip relative to the baseline OS futex?  0.1 is a
+#: user-level M:N scheduler (park = a userspace context switch), 1 the OS
+#: baseline, 10/100 oversubscribed or VM-mediated kernels — spanning three
+#: orders of magnitude so every sleep-leaning row gets visibly re-priced.
+LOCK_PARK_COSTS = (0.1, 1.0, 10.0, 100.0)
+
+
+def lock_park_variants(park_costs=LOCK_PARK_COSTS,
+                       disciplines=LOCK_DISCIPLINE_SET,
+                       oracles=LOCK_ORACLES) -> list[dict]:
+    """The ``(park_cost, discipline, oracle)`` variant axis of the park
+    diagram: the discipline x oracle variants (windowed-row pruning of
+    :func:`lock_discipline_variants`) replicated under every park-cost
+    environment, park-cost-major."""
+    return [dict(park_cost=p, **v)
+            for p in park_costs
+            for v in lock_discipline_variants(disciplines, oracles)]
+
+
+def lock_park_sweep(n_scenarios: int = 50, seed: int = 0,
+                    park_costs=LOCK_PARK_COSTS,
+                    disciplines=LOCK_DISCIPLINE_SET,
+                    oracles=LOCK_ORACLES) -> list[SimConfig]:
+    """The full park-cost x discipline x oracle product as one flat batch
+    for a single :func:`repro_torch.core.xdes.simulate_batch` call.
+
+    Row order is scenario-major, then park_cost, then (discipline, oracle)
+    variant — reshape to ``(n_scenarios, n_park_costs, n_variants)``.
+    Scenarios follow the :func:`sample_scenarios` seed contract, so every
+    park-cost environment sees the same machines scenario-by-scenario and
+    results are comparable cell-by-cell with the discipline diagram (the
+    ``park_cost=1`` slice IS the discipline diagram's machine)."""
+    disc_variants = lock_discipline_variants(disciplines, oracles)
+    return [
+        SimConfig(v["lock"], threads=sc["threads"], cores=sc["cores"],
+                  cs=(0.0, sc["cs_hi"]), ncs=(0.0, sc["ncs_hi"]),
+                  wake_latency=sc["wake"],
+                  alpha=sc["contention"] * DEFAULT_ALPHA[v["lock"]],
+                  seed=sc["seed"], oracle=v["oracle"], park_cost=p)
+        for sc in sample_scenarios(n_scenarios, seed)
+        for p in park_costs
+        for v in disc_variants
+    ]
 
 # -- array-native column twins (the streamed-sweep feed) -------------------
 # Each *_columns twin emits RAW struct-of-arrays columns
@@ -549,12 +703,64 @@ def _product_columns(sc: dict, variants: list[dict],
     }
 
 
+def lock_scenario_columns(n_scenarios: int = 200, seed: int = 0,
+                          locks=LOCK_DISCIPLINES) -> dict:
+    """Column twin of :func:`lock_scenario_sweep`."""
+    return _product_columns(sample_scenario_columns(n_scenarios, seed),
+                            [dict(lock=l) for l in locks])
+
+
+def lock_oracle_columns(n_scenarios: int = 200, seed: int = 0,
+                        oracles=LOCK_ORACLES, ks=LOCK_ORACLE_KS,
+                        sws_maxes=LOCK_ORACLE_SWS_MAX) -> dict:
+    """Column twin of :func:`lock_oracle_sweep`."""
+    return _product_columns(sample_scenario_columns(n_scenarios, seed),
+                            lock_oracle_variants(oracles, ks, sws_maxes))
+
+
 def lock_discipline_columns(n_scenarios: int = 200, seed: int = 0,
                             disciplines=LOCK_DISCIPLINE_SET,
                             oracles=LOCK_ORACLES) -> dict:
     """Column twin of :func:`lock_discipline_sweep`."""
     return _product_columns(sample_scenario_columns(n_scenarios, seed),
                             lock_discipline_variants(disciplines, oracles))
+
+
+def lock_workload_columns(n_scenarios: int = 100, seed: int = 0,
+                          workloads=LOCK_WORKLOADS,
+                          disciplines=LOCK_DISCIPLINE_SET,
+                          oracles=LOCK_ORACLES) -> dict:
+    """Column twin of :func:`lock_workload_sweep` (the scenario-scaled
+    workload knobs of :func:`lock_workload_params` computed as columns)."""
+    import numpy as np
+
+    sc = sample_scenario_columns(n_scenarios, seed)
+    S = len(sc["seed"])
+    wl = dict(wl_period=16.0 * (sc["cs_hi"] + sc["ncs_hi"]),
+              wl_duty=np.full(S, 0.25), wl_burst=np.full(S, 8.0),
+              wl_spread=np.full(S, 4.0))
+    return _product_columns(
+        sc, lock_workload_variants(workloads, disciplines, oracles), wl)
+
+
+def lock_fault_columns(n_scenarios: int = 100, seed: int = 0,
+                       faults=LOCK_FAULTS,
+                       disciplines=LOCK_DISCIPLINE_SET,
+                       oracles=LOCK_ORACLES) -> dict:
+    """Column twin of :func:`lock_fault_sweep` (the scenario-scaled fault
+    window of :func:`lock_fault_params` computed as a column)."""
+    import numpy as np
+
+    sc = sample_scenario_columns(n_scenarios, seed)
+    variants = lock_fault_variants(faults, disciplines, oracles)
+    V = len(variants)
+    cols = _product_columns(sc, variants)
+    cols["fault"] = np.tile(np.asarray(
+        [FAULT_IDS[v["fault"]] for v in variants], np.int32), len(sc["seed"]))
+    cols["fault_rate"] = np.tile(np.asarray(
+        [v["fault_rate"] for v in variants], np.float64), len(sc["seed"]))
+    cols["fault_scale"] = np.repeat(4.0 * (sc["cs_hi"] + sc["ncs_hi"]), V)
+    return cols
 
 
 def lock_arrival_columns(n_scenarios: int = 50, seed: int = 0,
@@ -588,3 +794,31 @@ def lock_arrival_columns(n_scenarios: int = 50, seed: int = 0,
     cols["slo"] = np.repeat(4.0 * (sc["cs_hi"] + sc["ncs_hi"]), V)
     cols["tie_break"] = np.zeros(S * V, np.int32)
     return cols
+
+
+def lock_park_columns(n_scenarios: int = 50, seed: int = 0,
+                      park_costs=LOCK_PARK_COSTS,
+                      disciplines=LOCK_DISCIPLINE_SET,
+                      oracles=LOCK_ORACLES) -> dict:
+    """Column twin of :func:`lock_park_sweep`."""
+    import numpy as np
+
+    sc = sample_scenario_columns(n_scenarios, seed)
+    variants = lock_park_variants(park_costs, disciplines, oracles)
+    cols = _product_columns(sc, variants)
+    cols["park_cost"] = np.tile(np.asarray(
+        [v["park_cost"] for v in variants], np.float64), len(sc["seed"]))
+    return cols
+
+
+#: Named sweep registry (mirrors the model-config registry above).
+LOCK_SWEEPS = {
+    "fig3": lock_fig3_grid,
+    "scenario": lock_scenario_sweep,
+    "oracle": lock_oracle_sweep,
+    "discipline": lock_discipline_sweep,
+    "workload": lock_workload_sweep,
+    "arrival": lock_arrival_sweep,
+    "fault": lock_fault_sweep,
+    "park": lock_park_sweep,
+}

@@ -246,6 +246,15 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.models.mamba; "
             "import repro_torch.models.moe; "
             "import repro_torch.core.window; "
+            "import repro_torch.bench; import repro_torch.bench.sweep; "
+            "import repro_torch.bench.oracle_ablation; "
+            "import repro_torch.bench.discipline_diagram; "
+            "import repro_torch.bench.workload_diagram; "
+            "import repro_torch.bench.arrival_diagram; "
+            "import repro_torch.bench.fault_diagram; "
+            "import repro_torch.bench.park_diagram; "
+            "from repro_torch.serve import SCHED_POLICY_LOCKS, "
+            "SchedScenario, sample_sched_scenarios, xdes_policy_sweep; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
             "m.startswith('repro.') or m == 'triton']; "
@@ -290,6 +299,36 @@ def test_cuda_device_without_cuda_raises():
         DecodeEngine(tiny, params, max_slots=1, max_seq=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--tiny", "--requests", "1"])
+
+
+def test_sweep_layer_without_cuda_raises(tmp_path):
+    """Every grid, every CLI of ``repro_torch.bench`` and the
+    scheduler-policy sweep run on the card unless asked for the CPU:
+    without CUDA they raise before writing anything."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    import importlib
+
+    from repro_torch.bench import sweep
+    from repro_torch.serve import sample_sched_scenarios, xdes_policy_sweep
+    for grid in ("fig3_batched", "scenario", "oracle_grid",
+                 "discipline_grid", "workload_grid", "arrival_grid",
+                 "fault_grid", "park_grid", "refine_grid"):
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                getattr(sweep, grid)(device=device, verbose=False)
+    for name in ("sweep", "oracle_ablation", "discipline_diagram",
+                 "workload_diagram", "arrival_diagram", "fault_diagram",
+                 "park_diagram"):
+        cli = importlib.import_module(f"repro_torch.bench.{name}")
+        for backend in ("kernel", "ref"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cli.main(["--scenarios", "1", "--target-cs", "5",
+                          "--backend", backend,
+                          "--out", str(tmp_path / "out" / "r.json")])
+    assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        xdes_policy_sweep(sample_sched_scenarios(2), target_cs=5)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -235,6 +235,14 @@ def test_plan_schedule_equal(target_cs):
     ("lock_oracle_sweep", dict(n_scenarios=5)),
     ("lock_discipline_sweep", dict(n_scenarios=5, seed=3)),
     ("lock_arrival_sweep", dict(n_scenarios=3, seed=2)),
+    ("lock_workload_sweep", dict(n_scenarios=3, seed=1)),
+    ("lock_workload_sweep", dict(n_scenarios=2, workloads=("hetero",),
+                                 disciplines=("mutable", "fifo"))),
+    ("lock_fault_sweep", dict(n_scenarios=3, seed=4)),
+    ("lock_fault_sweep", dict(n_scenarios=2, faults=("lostwake", "none"))),
+    ("lock_park_sweep", dict(n_scenarios=3, seed=5)),
+    ("lock_park_sweep", dict(n_scenarios=2, park_costs=(100.0, 0.1),
+                             oracles=("aimd",))),
 ])
 def test_catalog_specs_equal(factory, kwargs):
     import dataclasses
@@ -246,3 +254,49 @@ def test_catalog_specs_equal(factory, kwargs):
     assert tcatalog.lock_oracle_variants() == jcatalog.lock_oracle_variants()
     assert tcatalog.lock_discipline_variants() == \
         jcatalog.lock_discipline_variants()
+
+
+#: The sweep-layer names of the catalog, compared by value (constants) or
+#: called with defaults and overrides (builders of variants and params).
+CATALOG_CONSTANTS = ("LOCK_WORKLOADS", "LOCK_FAULTS", "LOCK_FAULT_RATES",
+                     "LOCK_PARK_COSTS")
+
+
+@pytest.mark.parametrize("name", CATALOG_CONSTANTS)
+def test_catalog_constant_equal(name):
+    assert getattr(tcatalog, name) == getattr(jcatalog, name)
+
+
+@pytest.mark.parametrize("factory,kwargs", [
+    ("lock_workload_variants", {}),
+    ("lock_workload_variants", dict(workloads=("jitter", "constant"),
+                                    oracles=("fixed",))),
+    ("lock_fault_variants", {}),
+    ("lock_fault_variants", dict(faults=("oversub",),
+                                 disciplines=("fissile", "sleep"))),
+    ("lock_park_variants", {}),
+    ("lock_park_variants", dict(park_costs=(10.0,),
+                                disciplines=("hapax", "mutable"))),
+    ("lock_fault_params", dict(sc=dict(cs_hi=3.7e-6, ncs_hi=2.1e-4))),
+    ("lock_workload_params", dict(sc=dict(cs_hi=1e-5, ncs_hi=4e-4))),
+])
+def test_catalog_variant_builders_equal(factory, kwargs):
+    assert getattr(tcatalog, factory)(**kwargs) == \
+        getattr(jcatalog, factory)(**kwargs)
+
+
+def test_catalog_has_every_name_of_the_reference():
+    """Every top-level name of the reference catalog exists in the port's,
+    and ``LOCK_SWEEPS`` names the same sweeps, each the port's own
+    builder giving the reference's configs."""
+    import dataclasses
+
+    own = lambda m: {n for n in vars(m) if not n.startswith("__")}
+    assert own(jcatalog) <= own(tcatalog)
+    assert list(tcatalog.LOCK_SWEEPS) == list(jcatalog.LOCK_SWEEPS)
+    for name, build in tcatalog.LOCK_SWEEPS.items():
+        assert build.__module__ == tcatalog.__name__, name
+        kw = {} if name == "fig3" else dict(n_scenarios=1)
+        assert [dataclasses.asdict(c) for c in build(**kw)] == \
+            [dataclasses.asdict(c)
+             for c in jcatalog.LOCK_SWEEPS[name](**kw)], name

@@ -369,6 +369,20 @@ def test_resume_refuses_foreign_checkpoint(tmp_path):
                                   disciplines=("mutable", "ttas"))),
     ("lock_discipline_columns", dict(n_scenarios=4)),
     ("sample_scenario_columns", dict(n_scenarios=6, seed=2)),
+    ("lock_scenario_columns", dict(n_scenarios=5, seed=1)),
+    ("lock_scenario_columns", dict(n_scenarios=2, locks=("fifo", "ttas"))),
+    ("lock_oracle_columns", dict(n_scenarios=3)),
+    ("lock_oracle_columns", dict(n_scenarios=2, seed=7, ks=(3,),
+                                 sws_maxes=(8, None))),
+    ("lock_workload_columns", dict(n_scenarios=3, seed=2)),
+    ("lock_workload_columns", dict(n_scenarios=2, workloads=("bursty",),
+                                   oracles=("history", "paper"))),
+    ("lock_fault_columns", dict(n_scenarios=3, seed=3)),
+    ("lock_fault_columns", dict(n_scenarios=2, faults=("preempt",
+                                                      "jitter"))),
+    ("lock_park_columns", dict(n_scenarios=3, seed=6)),
+    ("lock_park_columns", dict(n_scenarios=2, park_costs=(1.0,),
+                               disciplines=("sleep", "mutable"))),
 ])
 def test_catalog_columns_equal_reference(family, kwargs):
     got = getattr(tcatalog, family)(**kwargs)
@@ -377,6 +391,19 @@ def test_catalog_columns_equal_reference(family, kwargs):
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["scenario", "oracle", "workload", "fault",
+                                  "park"])
+def test_sweep_list_and_columns_encode_alike(name):
+    """Each new column twin encodes to the arrays of its list builder."""
+    cols = getattr(tcatalog, f"lock_{name}_columns")(n_scenarios=2, seed=3)
+    cfgs = getattr(tcatalog, f"lock_{name}_sweep")(n_scenarios=2, seed=3)
+    a, b = TP.encode_configs(cfgs), TP.encode_configs(cols)
+    assert list(a) == list(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert a[k].dtype == b[k].dtype, k
 
 
 def test_arrival_sweep_list_and_columns_agree():
