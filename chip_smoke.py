@@ -169,7 +169,29 @@ LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
    once), every CSV has a line per cell and every Markdown report is
    non-empty, and the streamed grid's on-card wins equal the host fold of
    its own per-config completed / t_end in f32.
-13. ``kernels`` the contract line: per kernel and variant, the time per
+13. ``paper_figures``  the paper's own artifacts on the port
+   (``repro_torch.bench.lockbench``, ``fidelity_study``, ``sched_bench``
+   and the event-driven DES ``repro_torch.core.des``): Fig. 1 on the DES
+   (fails unless C1 holds: ttas < 3.5 slots, sleep in (4.5, 5.5), mutable
+   < 3.5 with less spin than ttas); Fig. 3 at target_cs 400, seeds (0, 1),
+   through K1 on the card, then on the DES at target_cs 2000 (fails
+   unless C2-C4 hold on both engines), with each engine's ratio_to_opt of
+   mutable and pt-exp and the xdes / DES throughput of the 160
+   seed-averaged cells (min, median, max); the six xdes-against-DES band
+   families of the reference's tests (``test_xdes.py``'s three cells,
+   fifo at 4 and 20 threads, fissile / hapax / ttas_backoff over three
+   (threads, park_cost) points, the four workload rows, the five fault
+   rows, the poisson and bursty arrival rows on K1-open with the mean
+   sojourn too), each at its test's own cells, seeds, target_cs,
+   ``n_steps`` and ``dt`` as one ``simulate_batch`` through the kernel
+   against the DES on the host: every seed-averaged ratio in [0.7, 1.4];
+   the dt-fidelity study at its defaults (90 configs in one call, 150 000
+   steps, early exit), failing if an entry is not finite or the band at
+   dt <= 3e-7 exceeds 0.3; ``sched_bench.run_policy`` for zero, max and
+   mutable at 250 requests (fails unless C6 holds), then
+   ``sched_bench.xdes_sweep(20)`` through K1.  Each part's seconds and
+   launches, set to 0 just before it.
+14. ``kernels`` the contract line: per kernel and variant, the time per
    launch at its largest main-path shape (CUDA events, median, with the
    card kept busy while the host enqueues the launch), the plain
    version's time at the same shape, the roofline bound (the simulator
@@ -180,8 +202,8 @@ LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
    latency-bound, growing from small w issue-bound), and the launches
    its path made (the block kernel in the sweeps, the step pair in the
    scan rollouts, ``oracle_step`` on no path: 0; the block kernel's two
-   entries also carry ``diagrams_launches``, its launches in the
-   ``diagrams`` phase); ``flash_attention`` at
+   entries also carry ``diagrams_launches`` and
+   ``paper_figures_launches``, its launches in those phases); ``flash_attention`` at
    one prefill layer of llama3.2-1b and of jamba (hd 64 and 128, both on
    the tensor cores, each with its own bound and SDPA time) and
    ``rmsnorm`` at a prefill and a decode shape, with the PyTorch call that
@@ -227,10 +249,14 @@ if not torch.cuda.is_available():
                      "runs on the card only\n")
     sys.exit(1)
 
+from repro_torch.bench import fidelity_study as FS  # noqa: E402
+from repro_torch.bench import lockbench as LB  # noqa: E402
+from repro_torch.bench import sched_bench as SB  # noqa: E402
 from repro_torch.bench import sweep as B  # noqa: E402
 from repro_torch.configs import catalog  # noqa: E402
 from repro_torch.core import policy as P  # noqa: E402
 from repro_torch.core import stream as S  # noqa: E402
+from repro_torch.core import des as DES  # noqa: E402
 from repro_torch.core import xdes  # noqa: E402
 from repro_torch.core.policy import SimConfig  # noqa: E402
 from repro_torch.kernels import build as KB  # noqa: E402
@@ -1190,6 +1216,299 @@ def refine_record(refine, calls):
            "dense_dropped": meta["n_dense_dropped"], **call_summary(calls)}
     rec["config_steps_per_s"] = rec["config_steps"] / rec["sweep_seconds"]
     return rec
+
+# --------------------------------------------------------------------------
+# phase 13: the paper's figures on the port
+# --------------------------------------------------------------------------
+def launch_counts():
+    """(closed, open) launches of ``lock_sim_block`` since the last reset."""
+    return K.lock_sim_block.launches, K.lock_sim_block.open_launches
+
+
+def reset_launches():
+    torch.cuda.synchronize()
+    K.lock_sim_block.launches = K.lock_sim_block.open_launches = 0
+
+
+def band_families():
+    """The reference's xdes-against-DES band tests, each with its own
+    cells, seeds, target_cs, ``n_steps`` and ``dt``, as ``{family:
+    (configs, simulate_batch keywords, cells)}``.  A cell is ``(label,
+    the config rows its xdes side averages, the keywords of the DES runs
+    its DES side averages)``; the open family's DES runs are ``LockSim``
+    keywords, run to the xdes horizon."""
+    SHORT, LONG, WAKE = catalog.LOCK_SHORT, catalog.LOCK_LONG, \
+        catalog.LOCK_WAKE
+    fams = {}
+
+    # tests/test_xdes.py::test_agrees_with_event_driven_des_on_trends
+    locks = ("ttas", "mcs", "sleep", "adaptive", "mutable")
+    regimes = {"ss": (SHORT, SHORT), "ls": (LONG, SHORT),
+               "sl": (SHORT, LONG)}
+    keys = [(reg, lock, tc) for reg in regimes for lock in locks
+            for tc in (4, 20)]
+    cfgs = [SimConfig(lock, threads=tc, cores=20, cs=regimes[reg][0],
+                      ncs=regimes[reg][1], wake_latency=WAKE, seed=0)
+            for reg, lock, tc in keys]
+    fams["xdes_trends"] = (cfgs, {"target_cs": 120}, [
+        (f"{reg}/{lock}/{tc}", [keys.index((reg, lock, tc))],
+         [dict(lock=lock, threads=tc, cores=20, cs=regimes[reg][0],
+               ncs=regimes[reg][1], wake_latency=WAKE, target_cs=800,
+               seed=0)])
+        for reg, lock, tc in (("ss", "ttas", 20), ("ss", "sleep", 20),
+                              ("ls", "mutable", 20))])
+
+    # tests/test_disciplines.py::test_fifo_des_model_is_fifo_and_parity_...
+    cfgs = [SimConfig("fifo", threads=tc, cores=20, cs=SHORT, ncs=SHORT,
+                      wake_latency=WAKE, seed=0) for tc in (4, 20)]
+    fams["fifo"] = (cfgs, {"target_cs": 150}, [
+        (f"fifo/{tc}", [i], [dict(lock="fifo", threads=tc, cores=20,
+                                  cs=SHORT, ncs=SHORT, wake_latency=WAKE,
+                                  target_cs=800, seed=0)])
+        for i, tc in enumerate((4, 20))])
+
+    # tests/test_disciplines.py::test_new_rows_des_parity_seed_averaged
+    seeds = (0, 1, 2)
+    points = [(lock, tc, pc) for lock in ("fissile", "hapax", "ttas_backoff")
+              for tc, pc in ((4, 1.0), (12, 1.0), (12, 8.0))]
+    cfgs = [SimConfig(lock, threads=tc, cores=8, cs=SHORT, ncs=SHORT,
+                      wake_latency=WAKE, seed=s, park_cost=pc)
+            for lock, tc, pc in points for s in seeds]
+    fams["new_rows"] = (cfgs, {"target_cs": 150}, [
+        (f"{lock}/{tc}/park{pc:g}", [i * 3 + j for j in range(3)],
+         [dict(lock=lock, threads=tc, cores=8, cs=SHORT, ncs=SHORT,
+               wake_latency=WAKE, target_cs=400, seed=s, park_cost=pc)
+          for s in seeds])
+        for i, (lock, tc, pc) in enumerate(points)])
+
+    # tests/test_workloads.py::test_xdes_vs_des_parity_per_row
+    cfgs, cells = [], []
+    for w in ("constant", "bursty", "hetero", "jitter"):
+        rng = np.random.default_rng(P.WORKLOAD_IDS[w])
+        for lock in ("ttas", "mutable", "sleep"):
+            tc, cores = int(rng.integers(4, 13)), int(rng.integers(4, 13))
+            rows = list(range(len(cfgs), len(cfgs) + 3))
+            cfgs += [SimConfig(lock, threads=tc, cores=cores, cs=SHORT,
+                               ncs=SHORT, wake_latency=WAKE, seed=s,
+                               workload=w, wl_period=8e-5) for s in seeds]
+            cells.append((f"{w}/{lock}/{tc}t{cores}c", rows, [
+                dict(lock=lock, threads=tc, cores=cores, cs=SHORT,
+                     ncs=SHORT, wake_latency=WAKE, target_cs=800, seed=s,
+                     **cfgs[rows[0]].workload_kwargs()) for s in seeds]))
+    fams["workload"] = (cfgs, {"target_cs": 150}, cells)
+
+    # tests/test_faults.py::test_xdes_vs_des_parity_per_row
+    f_cs, f_ncs, f_wake, scale = (1e-6, 2e-6), (2e-6, 4e-6), 5e-6, 1e-5
+    rates = {"none": 0.0, "preempt": 0.6, "oversub": 0.6, "lostwake": 0.5,
+             "jitter": 0.5}
+    cfgs, cells = [], []
+    for fault, rate in rates.items():
+        for lock in ("ttas", "sleep", "mutable"):
+            rows = list(range(len(cfgs), len(cfgs) + 4))
+            cfgs += [SimConfig(lock, threads=8, cores=4, cs=f_cs, ncs=f_ncs,
+                               wake_latency=f_wake, seed=s, fault=fault,
+                               fault_rate=rate, fault_scale=scale)
+                     for s in range(4)]
+            cells.append((f"{fault}/{lock}", rows, [
+                dict(lock=lock, threads=8, cores=4, cs=f_cs, ncs=f_ncs,
+                     wake_latency=f_wake, target_cs=800, seed=s,
+                     **cfgs[rows[0]].fault_kwargs()) for s in range(4)]))
+    fams["fault"] = (cfgs, {"target_cs": 150}, cells)
+
+    # tests/test_open_loop.py::test_xdes_vs_des_open_loop_parity
+    cfgs, cells = [], []
+    for arrival in ("poisson", "bursty"):
+        rows = list(range(len(cfgs), len(cfgs) + 3))
+        cfgs += [SimConfig("ttas", threads=4, cores=4, cs=SHORT, ncs=SHORT,
+                           wake_latency=WAKE, seed=s, arrival=arrival,
+                           arrival_rate=2e5, wl_period=4e-4, wl_burst=4.0)
+                 for s in seeds]
+        cells.append((arrival, rows, [
+            dict(lock="ttas", threads=4, cores=4, cs=SHORT, ncs=SHORT,
+                 wake_latency=WAKE, seed=s, wl_period=4e-4, wl_burst=4.0,
+                 **cfgs[rows[0]].arrival_kwargs()) for s in seeds]))
+    fams["open_loop"] = (cfgs, {"n_steps": 40_000, "dt": 5e-8}, cells)
+    return fams
+
+
+def run_band_family(name, cfgs, kw, cells):
+    """One family: one ``simulate_batch`` through the kernel, then the
+    DES runs of each cell on the host; every seed-averaged ratio must lie
+    in ``DES_BAND``."""
+    opened = name == "open_loop"
+    reset_launches()
+    t0 = time.perf_counter()
+    res = xdes.simulate_batch(cfgs, backend="kernel", **kw).validate(
+        f"des_bands {name}")
+    torch.cuda.synchronize()
+    x_seconds = time.perf_counter() - t0
+    launches, open_launches = launch_counts()
+    if (open_launches <= 0 or launches != 0) if opened else \
+            (launches <= 0 or open_launches != 0):
+        fail(f"des_bands {name}: {launches} closed / {open_launches} open "
+             f"launches")
+    t0 = time.perf_counter()
+    ratios = {}
+    for label, rows, des_runs in cells:
+        if opened:
+            t_end = float(res.t_end[rows[0]])
+            x_thr = float(np.asarray(res.departed)[rows].mean()) / t_end
+            x_lat = float(np.nanmean(np.asarray(res.mean_latency)[rows]))
+            d_thr, d_lat = [], []
+            for des_kw in des_runs:
+                r = DES.LockSim(**des_kw).run(target_cs=10**9,
+                                              horizon=t_end)
+                if len(r.latencies) <= 50:
+                    fail(f"des_bands {name} {label}: {len(r.latencies)} "
+                         f"DES departures")
+                d_thr.append(len(r.latencies) / t_end)
+                d_lat.append(r.mean_latency)
+            ratios[label] = {"throughput": x_thr / float(np.mean(d_thr)),
+                             "mean_sojourn": x_lat / float(np.mean(d_lat))}
+        else:
+            x = float(res.throughput[rows].mean())
+            d = float(np.mean([DES.simulate(**des_kw).throughput
+                               for des_kw in des_runs]))
+            ratios[label] = {"throughput": x / d}
+    out = {"configs": len(cfgs), "n_steps": res.n_steps,
+           "steps_run": int(res.steps_run.max()),
+           "launches": launches, "open_launches": open_launches,
+           "xdes_seconds": x_seconds,
+           "des_seconds": time.perf_counter() - t0, "ratios": ratios}
+    bad = {k: v for k, v in ratios.items()
+           if not all(DES_BAND[0] < r < DES_BAND[1] for r in v.values())}
+    if bad:
+        fail(f"des_bands {name}: outside {DES_BAND}: {bad}")
+    return out
+
+
+def fig3_side(f3, engine):
+    """Claims C2-C4 and the ratio_to_opt of mutable and pt-exp of one
+    engine's Fig. 3 grid; fails unless every claim holds."""
+    claims = B._check_claims(f3)
+    if not (claims["C2"] and claims["C3"] and claims["C4"]):
+        fail(f"paper_figures fig3 ({engine}): claims {claims}")
+    return {"claims": claims,
+            "ratio_to_opt": {reg: {k: f3[reg]["summary"][k]["ratio_to_opt"]
+                                   for k in ("mutable", "pt-exp")}
+                             for reg in LB.REGIMES}}
+
+
+def phase_paper_figures():
+    """The paper's own artifacts on the port: Fig. 1 on the DES, Fig. 3 on
+    both engines (xdes through K1 on the card, the DES on the host), the
+    reference's xdes-against-DES band families, the dt-fidelity study and
+    the serving-window benchmark; returns the phase's (closed, open)
+    launches."""
+    t_phase = time.perf_counter()
+
+    # Fig. 1 (C1)
+    f1 = LB.fig1(verbose=False)
+    if not (f1["ttas"]["makespan_slots"] < 3.5
+            and 4.5 < f1["sleep"]["makespan_slots"] < 5.5
+            and f1["mutable"]["makespan_slots"] < 3.5
+            and f1["mutable"]["spin_waste_slots"]
+            < f1["ttas"]["spin_waste_slots"]
+            and f1["mutable"]["wakes"] <= f1["sleep"]["wakes"]):
+        fail(f"paper_figures fig1: C1 fails: {f1}")
+
+    # Fig. 3 on both engines (C2-C4)
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        f3x = LB.fig3(target_cs=PAPER_XDES_TARGET_CS, seeds=(0, 1),
+                      engine="xdes", verbose=False)
+    torch.cuda.synchronize()
+    x_seconds = time.perf_counter() - t0
+    x_launches = launch_counts()[0]
+    if x_launches <= 0:
+        fail("paper_figures fig3: the xdes grid launched no K1")
+    t0 = time.perf_counter()
+    f3d = LB.fig3(target_cs=PAPER_DES_TARGET_CS, seeds=(0, 1),
+                  engine="des", verbose=False)
+    d_seconds = time.perf_counter() - t0
+    ratio = {reg: [f3x[reg]["rows"][lock][i]["throughput"]
+                   / f3d[reg]["rows"][lock][i]["throughput"]
+                   for lock in LB.LOCKS for i in range(len(LB.THREADS))]
+             for reg in LB.REGIMES}
+    spread = lambda r: {"min": min(r), "median": float(np.median(r)),
+                        "max": max(r)}
+    cells = [r for rs in ratio.values() for r in rs]
+    fig3 = {"xdes": {"target_cs": PAPER_XDES_TARGET_CS, "seeds": [0, 1],
+                     "seconds": x_seconds, "launches": x_launches,
+                     **fig3_side(f3x, "xdes")},
+            "des": {"target_cs": PAPER_DES_TARGET_CS, "seeds": [0, 1],
+                    "seconds": d_seconds, **fig3_side(f3d, "des")},
+            "cells": len(cells),
+            "xdes_over_des_throughput": {
+                **spread(cells),
+                "by_regime": {reg: spread(r) for reg, r in ratio.items()}}}
+
+    # the reference's band families, the port's engine against its DES
+    bands = {}
+    for name, (cfgs, kw, cells) in band_families().items():
+        bands[name] = run_band_family(name, cfgs, kw, cells)
+
+    # the dt-fidelity study at its defaults
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        study = FS.run_study(verbose=False)
+    torch.cuda.synchronize()
+    f_seconds = time.perf_counter() - t0
+    f_launches = launch_counts()[0]
+    band = study["throughput_err_band_by_dt"]
+    by_dt = [band[f"{dt:g}"] for dt in FS.DTS]          # dt ascending
+    fine = [band[f"{dt:g}"] for dt in FS.DTS if dt <= 3e-7]
+    if f_launches <= 0 or not all(np.isfinite(v) for v in by_dt) or \
+            not all(np.isfinite([g["throughput_rel_err"],
+                                 g["spin_cpu_rel_err"]]).all()
+                    for g in study["grid"]) or max(fine) > FIDELITY_LIMIT:
+        fail(f"paper_figures fidelity: band {band}, {f_launches} launches")
+    fidelity = {"throughput_err_band_by_dt": band,
+                "band_shrinks_as_dt_drops": all(
+                    a <= b for a, b in zip(by_dt, by_dt[1:])),
+                "des_wall_s": study["meta"]["des_wall_s"],
+                "xdes_wall_s": study["meta"]["xdes_wall_s"],
+                "seconds": f_seconds, "configs": study["meta"]["n_configs"],
+                "launches": f_launches}
+
+    # the serving window: C6 on the step-level engine, then through xdes
+    runs = {p: SB.run_policy(p, n_requests=SCHED_REQUESTS)
+            for p in ("zero", "max", "mutable")}
+    zero, mx, mut = runs["zero"], runs["max"], runs["mutable"]
+    if not (mut["late_handoff_rate"] <= mx["late_handoff_rate"] * 1.1
+            and mut["late_handoff_rate"] < zero["late_handoff_rate"]
+            and mut["avg_standby"] < mx["avg_standby"]):
+        fail(f"paper_figures sched: C6 fails: {runs}")
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        sweep = SB.xdes_sweep(SCHED_SCENARIOS)
+    torch.cuda.synchronize()
+    s_seconds = time.perf_counter() - t0
+    s_launches = launch_counts()[0]
+    if s_launches <= 0:
+        fail("paper_figures sched: the xdes sweep launched no K1")
+    sched = {"requests": SCHED_REQUESTS,
+             "late_handoff_rate": {p: r["late_handoff_rate"]
+                                   for p, r in runs.items()},
+             "avg_standby": {p: r["avg_standby"] for p, r in runs.items()},
+             "xdes": {"scenarios": SCHED_SCENARIOS, "seconds": s_seconds,
+                      "launches": s_launches,
+                      "mean_ratio_to_best": {
+                          p: v["mean_ratio_to_best"]
+                          for p, v in sweep["policies"].items()}}}
+
+    launches = (x_launches + f_launches + s_launches
+                + sum(b["launches"] for b in bands.values()),
+                sum(b["open_launches"] for b in bands.values()))
+    emit({"phase": "paper_figures",
+          "seconds": time.perf_counter() - t_phase, "fig1": f1,
+          "fig3": fig3, "des_bands": bands, "fidelity": fidelity,
+          "sched": sched, "launches": launches[0],
+          "open_launches": launches[1]})
+    return launches
 
 
 #: Cycles the card spins before a timed kernel launch (about 2.5 ms), long
@@ -2522,6 +2841,17 @@ DIAGRAM_CONFIGS = {"oracle_ablation": 4600, "discipline_diagram": 3000,
 #: The streamed fault grid: 1334 scenarios x 5 fault rows x 15 variants =
 #: 100 050 configs, the phase cells' wins accumulated on the card.
 FAULT_STREAM_SCENARIOS = 1334
+#: ``paper_figures``: Fig. 3 at lockbench's defaults (xdes 400, the DES
+#: 2000 CS a cell), the reference's parity band for every seed-averaged
+#: xdes / DES ratio, the fidelity band allowed at dt <= 3e-7 (the lower
+#: side of the parity band), and the serving-window sizes of
+#: ``tests/test_paper_claims.py`` (C6) and ``sched_bench --xdes``.
+PAPER_XDES_TARGET_CS = 400
+PAPER_DES_TARGET_CS = 2000
+DES_BAND = (0.7, 1.4)
+FIDELITY_LIMIT = 0.3
+SCHED_REQUESTS = 250
+SCHED_SCENARIOS = 20
 
 
 #: Instruction classes of ``kernel_sass`` (``k1_sass``, ``k6_sass``,
@@ -2742,6 +3072,7 @@ def main():
     phase_stream_identity()
     arrs, _, ares, open_launches = phase_arrival_at_size()
     diagram_launches = phase_diagrams()
+    paper_launches = phase_paper_figures()
     floor = floor_ms()
     entries = (closed_entries(cfgs, steps, big, launches, scan_launches,
                               max_abs_err, step_abs_err)
@@ -2757,8 +3088,11 @@ def main():
         # the sweep layer's path: K1 in the closed grids, K1-open in the
         # arrival grid (phase diagrams, its own counts)
         if entry["name"] in ("lock_sim_block", "lock_sim_block_open"):
-            entry["diagrams_launches"] = diagram_launches[
-                entry["name"] == "lock_sim_block_open"]
+            opened = entry["name"] == "lock_sim_block_open"
+            entry["diagrams_launches"] = diagram_launches[opened]
+            # the paper's figures: Fig. 3, the DES bands, the fidelity
+            # study, the scheduler sweep
+            entry["paper_figures_launches"] = paper_launches[opened]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True,

@@ -953,9 +953,11 @@ def latency_percentiles(hist, qs=(0.50, 0.95, 0.99)):
 class SimConfig:
     """One ``(lock, threads, cores, cs, ncs, wake_latency, alpha)`` cell.
 
-    The batched backend encodes a list of them into struct-of-arrays form
-    (:func:`encode_configs`) and simulates all of them in one device
-    program (:func:`repro_torch.core.xdes.simulate_batch`).
+    The event-driven DES consumes these through :func:`repro_torch.core.
+    des.simulate`; the batched backend encodes a list of them into
+    struct-of-arrays form (:func:`encode_configs`) and simulates all of
+    them in one device program (:func:`repro_torch.core.xdes.
+    simulate_batch`).
     """
 
     lock: str
@@ -1053,10 +1055,49 @@ class SimConfig:
             return max(1, min(self.sws_init, self.sws_max_eff))
         return self.threads             # tas/ttas/mcs/adaptive/fifo/hapax/bo
 
+    def des_kwargs(self) -> dict:
+        """Keyword form consumed by :func:`repro_torch.core.des.simulate`."""
+        kw: dict = {}
+        if self.alpha is not None:
+            kw["alpha"] = self.alpha
+        if self.lock in ("mutable", "fissile"):
+            from .oracle import make_oracle
+
+            kw.update(initial_sws=self.sws_init, max_sws=self.sws_max,
+                      oracle=make_oracle(self.oracle, k=self.k))
+        if self.lock in ("adaptive", "fissile", "ttas_backoff"):
+            kw["spin_budget"] = self.spin_budget
+        return kw
+
+    def workload_kwargs(self) -> dict:
+        """Workload keywords consumed by :class:`repro_torch.core.des.LockSim`
+        (the event-driven twin of the workload rows)."""
+        return dict(workload=self.workload, wl_period=self.wl_period,
+                    wl_duty=self.wl_duty, wl_burst=self.wl_burst,
+                    wl_spread=self.wl_spread,
+                    arrival_phase=self.arrival_phase)
+
     @property
     def open_loop(self) -> bool:
         """True iff this config runs the open-loop arrival engine."""
         return ARRIVAL_IDS[self.arrival] != AR_CLOSED
+
+    def arrival_kwargs(self) -> dict:
+        """Open-loop keywords consumed by :class:`repro_torch.core.des.LockSim`
+        (the event-driven twin of the arrival rows)."""
+        return dict(arrival=self.arrival, arrival_rate=self.arrival_rate,
+                    queue_cap=self.queue_cap)
+
+    def fault_kwargs(self) -> dict:
+        """Fault keywords consumed by :class:`repro_torch.core.des.LockSim`
+        (the event-driven twin of the fault rows)."""
+        return dict(fault=self.fault, fault_rate=self.fault_rate,
+                    fault_scale=self.fault_scale)
+
+    def env_kwargs(self) -> dict:
+        """Environment keywords consumed by :class:`repro_torch.core.des.LockSim`
+        (the M:N parking axis)."""
+        return dict(park_cost=self.park_cost)
 
 
 def workload_mean_scale_columns(workload, wl_duty, wl_burst, wl_spread):
