@@ -101,6 +101,41 @@ LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
    K8 15 times (two a layer, the final norm, one inside each mamba mixer),
    every decode step K8 15 times and K7 never; the peak bytes of
    ``init_params`` and of the drain.
+LM12. ``train_grad_vs_plain``  each of K5 (f32 on the SIMT kernel; bf16
+   hd 64 / 128 on the tensor cores; causal, windowed, softcapped; GQA, MQA,
+   MHA; S up to 1024, two tiles of the backward), K6 (n 64 / 16, T 64-256,
+   with and without s0), K7 (T 64-256, N 16 / 4) and K8 (f32 and bf16)
+   through its autograd function on the card: the forward launched the
+   kernel once and lies within the kernel's forward tolerance of the plain
+   version, and every input gradient within 1e-4 (f32) / 2e-2 (bf16) *
+   max(1, max|g|) of autograd through the plain version on the same card
+   tensors; the worst excess per kernel.
+LM13. ``train_lm_vs_plain``  one AdamW train step on the card against the
+   same step on the CPU, from the same weights and a 2 x 256 batch:
+   llama3.2-1b at full width cut to 2 layers (f32, remat full), tiny
+   rwkv6-1.6b (K6, its time-mix made live) and tiny jamba (K7, the MoE
+   aux loss): loss within 1e-4 relative, grad_norm within 1e-3, every
+   gradient leaf within 1e-3 * max|CPU's|; the card's step launching K5,
+   K6, K7 once per attention, rwkv6, mamba layer and K8 once per norm, each
+   twice under remat (the final norm once).
+LM14. ``train_at_size``  llama3.2-1b at full width and depth (1 235 814 400
+   parameters, bf16, remat full, logit_chunk 512, AdamW at the reference's
+   defaults) trained 8 steps of 4 x 2048 tokens through
+   ``repro_torch.launch.train.train_loop`` (its MutableLock'd prefetch
+   loader and heartbeat board, no checkpoint): per step loss, grad_norm,
+   seconds and launches, the median step over steps 2-8, tokens/s, peak
+   bytes, the device's idle share and largest kernels over one more step
+   traced, the median of 7 more steps fed by the corpus directly (no
+   loader threads), the loader's empty gets and the monitor's ready
+   hosts.  Fails unless every loss and grad_norm is finite, step 0's loss
+   lies within 2 of ln V, and every step
+   launched K5 32 times (all on the tensor cores) and K8 65 times: each
+   layer's forward and its remat recompute, and the final norm.
+LM15. ``train_resume``  ``examples/train_resume.py``'s flow through the
+   port's ``launch.train.main`` on the card: tiny llama, 30 steps; then die
+   after step 18 with a checkpoint every 10 and rerun to 30: the resumed
+   steps 11-29 equal the uninterrupted run's losses within 1e-5 relative.
+   A ``training`` line gives the four phases' seconds.
 3. ``kernel_vs_plain``  ``lock_sim_block`` against ``lock_sim_block_ref``,
    both on the card, chained from the engine's initial state for 256 steps
    over the closed conformance matrix (every policy id x workload x fault,
@@ -220,7 +255,12 @@ LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
    prefill layer of jamba (B 1, T 1024, d_in 16 384, N 16), bound by the
    larger of its bytes, its f32 operations and its exps on the
    special-function units, with no library call and the launches of
-   ``serve_jamba_at_size``.
+   ``serve_jamba_at_size``.  The training path: ``flash_attention`` and
+   ``rmsnorm`` carry ``train_launches`` (over ``train_at_size``'s 8 steps)
+   and ``train_launches_per_step``, ``rwkv6_scan`` and ``mamba_scan`` the
+   launches of ``train_lm_vs_plain``'s card steps, and every LM entry
+   ``grad_max_err_over_limit``, its kernel's worst gradient excess in
+   ``train_grad_vs_plain``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2631,6 +2671,407 @@ def phase_moe_lm_vs_plain():
           "seconds": time.perf_counter() - t0})
 
 
+# --------------------------------------------------------------------------
+# Training: the kernels' gradients, one train step card vs CPU, llama3.2-1b
+# trained at size through launch.train, and its resume
+# --------------------------------------------------------------------------
+#: K5's gradient cases: (dtype, BH, BKV, S, hd, causal, window, softcap).
+#: f32 on the SIMT kernel; bf16 hd 64 / 128 on the tensor cores; GQA,
+#: MQA and MHA; S 1024 takes the backward's two query tiles.
+FLASH_GRAD_CASES = (
+    (torch.float32, 8, 2, 256, 64, True, 0, 0.0),
+    (torch.float32, 8, 8, 200, 64, True, 64, 0.0),
+    (torch.float32, 4, 1, 256, 128, False, 0, 30.0),
+    (torch.bfloat16, 16, 4, 512, 64, True, 0, 0.0),
+    (torch.bfloat16, 8, 2, 300, 128, True, 64, 0.0),
+    (torch.bfloat16, 8, 8, 256, 64, True, 0, 30.0),
+    (torch.bfloat16, 8, 1, 1024, 64, True, 0, 0.0),
+)
+#: K6's: (n, BH, T, with s0); K7's: (B, T, d, N, dt range); K8's: (rows, D).
+RWKV6_GRAD_CASES = ((64, 8, 64, True), (64, 4, 256, False),
+                    (16, 8, 130, True))
+MAMBA_GRAD_CASES = ((2, 64, 256, 16, "model"), (1, 256, 128, 16, "wide"),
+                    (2, 130, 64, 4, "model"))
+RMS_GRAD_SHAPES = ((512, 2048), (7, 80), (4, 8192))
+#: An input gradient against autograd through the plain version: max|d|
+#: at most this times max(1, max|plain's|).
+GRAD_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: train_lm_vs_plain: a 2 x 256-token batch; loss and grad_norm against
+#: the CPU's (relative), each gradient leaf within TRAIN_LEAF_LIMIT *
+#: max|CPU's|.
+TRAIN_LM_BATCH = (2, 256)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_NORM_RTOL = 1e-3
+TRAIN_LEAF_LIMIT = 1e-3
+#: train_at_size: llama3.2-1b at full width and depth, bf16, remat full,
+#: logit_chunk 512, AdamW at the reference's defaults.
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+#: train_resume: examples/train_resume.py's flow (tiny llama).
+RESUME_ARGV = ["--arch", "llama3.2-1b", "--tiny", "--steps", "30",
+               "--batch", "4", "--seq", "64"]
+RESUME_RTOL = 1e-5
+
+
+def grad_excess(got, want, dtype):
+    """max over the inputs of max|got - want| / (GRAD_LIMIT * max(1,
+    max|want|)): at most 1 where they agree."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        if w is None:
+            continue
+        lim = GRAD_LIMIT[dtype] * max(1.0, float(w.float().abs().max()))
+        worst = max(worst, float((g.float() - w.float()).abs().max()) / lim)
+    return worst
+
+
+def grads_of(outs, leaves, grads):
+    return torch.autograd.grad(outs, leaves, grads, allow_unused=True)
+
+
+def phase_train_grad_vs_plain():
+    """Each of K5-K8 through its autograd function on the card: the
+    forward launched the kernel (its count + 1) within the kernel's
+    forward tolerance of the plain version, and every input gradient
+    within GRAD_LIMIT of autograd through the plain version on the same
+    card tensors."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    rnd = lambda shape, dt=torch.float32: torch.randn(
+        shape, generator=gen, device=DEV).to(dt)
+    out = {"phase": "train_grad_vs_plain", "cases": {}, "worst_excess": {}}
+
+    def record(name, fwd_excess, excess, launched):
+        if launched != 1:
+            fail(f"train_grad_vs_plain {name}: {launched} launches")
+        if not fwd_excess <= 1.0:
+            fail(f"train_grad_vs_plain {name}: forward {fwd_excess} x its "
+                 f"limit")
+        if not excess <= 1.0:
+            fail(f"train_grad_vs_plain {name}: gradients {excess} x their "
+                 f"limit")
+        kern = name.split()[0]
+        out["cases"][kern] = out["cases"].get(kern, 0) + 1
+        out["worst_excess"][kern] = max(out["worst_excess"].get(kern, 0.0),
+                                        excess)
+
+    for dt, BH, BKV, S, hd, causal, window, cap in FLASH_GRAD_CASES:
+        q = rnd((BH, S, hd), dt).requires_grad_()
+        k, v = (rnd((BKV, S, hd), dt).requires_grad_() for _ in range(2))
+        g = rnd((BH, S, hd), dt)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        n, n_tc = LMA.launches, LMA.tc_launches
+        o = LMA(q, k, v, **kw)
+        launched = LMA.launches - n
+        if (LMA.tc_launches - n_tc) != int(tensor_core_path(dt, hd)):
+            fail(f"train_grad_vs_plain K5 {dt} hd {hd}: kernel path")
+        o_ref = ref.flash_attention_ref(q, k, v, **kw)
+        got = grads_of(o, (q, k, v), g)
+        want = grads_of(o_ref, (q, k, v), g)
+        record(f"flash_attention {dt} {BH}/{BKV} S {S} hd {hd} {kw}",
+               flash_excess(o.detach(), o_ref.detach()),
+               grad_excess(got, want, dt), launched)
+    for n, BH, T, with_s0 in RWKV6_GRAD_CASES:
+        ins = [t.requires_grad_() if t is not None else None
+               for t in rwkv6_inputs(gen, BH, T, n, "model", with_s0)]
+        gy, gS = rnd((BH, T, n)), rnd((BH, n, n))
+        c = LMW.launches
+        y, S = LMW(*ins)
+        launched = LMW.launches - c
+        y_ref, S_ref = ref.rwkv6_scan_ref(*ins)
+        leaves = [t for t in ins if t is not None]
+        got = grads_of((y, S), leaves, (gy, gS))
+        want = grads_of((y_ref, S_ref), leaves, (gy, gS))
+        record(f"rwkv6_scan n {n} BH {BH} T {T} s0 {with_s0}",
+               max(rwkv6_excess(y.detach(), y_ref.detach()),
+                   rwkv6_excess(S.detach(), S_ref.detach())),
+               grad_excess(got, want, torch.float32), launched)
+    for B, T, d, N, dtr in MAMBA_GRAD_CASES:
+        ins = [t.requires_grad_() for t in mamba_inputs(gen, B, T, d, N, dtr)]
+        gy, gs = rnd((B, T, d)), rnd((B, d, N))
+        c = LMM.launches
+        y, s = LMM(*ins)
+        launched = LMM.launches - c
+        y_ref, s_ref = ref.mamba_scan_ref(*ins)
+        got = grads_of((y, s), ins, (gy, gs))
+        want = grads_of((y_ref, s_ref), ins, (gy, gs))
+        record(f"mamba_scan B {B} T {T} d {d} N {N} {dtr}",
+               max(mamba_excess(y.detach(), y_ref.detach()),
+                   mamba_excess(s.detach(), s_ref.detach())),
+               grad_excess(got, want, torch.float32), launched)
+    for rows, D in RMS_GRAD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = (3.0 * rnd((rows, D))).to(dt).requires_grad_()
+            w = (0.1 * rnd((D,))).to(dt).requires_grad_()
+            g = rnd((rows, D), dt)
+            c = LMN.launches
+            y = LMN(x, w)
+            launched = LMN.launches - c
+            y_ref = ref.rmsnorm_ref(x, w)
+            d = (y.detach().float() - y_ref.detach().float()).abs()
+            fwd = (float((d / y_ref.detach().abs().clamp_min(1e-30)).max())
+                   / 2e-6 if dt == torch.float32
+                   else float((d / bf16_ulp(y_ref.detach())).max()))
+            record(f"rmsnorm {rows}x{D} {dt}", fwd,
+                   grad_excess(grads_of(y, (x, w), g),
+                               grads_of(y_ref, (x, w), g), dt), launched)
+    out["limits"] = {"float32": GRAD_LIMIT[torch.float32],
+                     "bfloat16": GRAD_LIMIT[torch.bfloat16]}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out["worst_excess"]
+
+
+def train_step_pair(name, cfg, cpu_model):
+    """One AdamW train step of ``cfg`` on the CPU and on the card from the
+    same weights (carried to the card by ``convert``'s leaves) and batch: loss
+    within TRAIN_LOSS_RTOL, grad_norm within TRAIN_NORM_RTOL, every
+    gradient leaf (the reference's leaves, taken before the step) within
+    TRAIN_LEAF_LIMIT * max|CPU's|; the card's step launched K5, K6, K7
+    once per attention, rwkv6, mamba layer and K8 k8_per_forward(cfg)
+    times (remat recomputes each layer's: twice as many)."""
+    from repro_torch.models import convert, transformer
+    from repro_torch.train import TrainConfig, make_train_step, state_of
+    from repro_torch.train.train_step import _grads_plain
+    # carried across by the reference's leaves, as a checkpoint is
+    gpu_model = transformer.init_params(cfg, None, "meta").to_empty(
+        device=DEV)
+    convert.load_leaves(cfg, gpu_model, {
+        k: convert.stack_leaf(v)
+        for k, v in convert.param_leaves(cfg, cpu_model).items()})
+    B, S = TRAIN_LM_BATCH
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tcfg = TrainConfig()
+    step = make_train_step(cfg, tcfg)
+    res = {}
+    for side, model in (("cpu", cpu_model), ("card", gpu_model)):
+        state = state_of(cfg, tcfg, model)
+        dev = model.final_norm.device
+        on = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        _, _, grads = _grads_plain(cfg, model, on)
+        grads = {k: g.float().cpu() for k, g in grads.items()}
+        if side == "card":
+            torch.cuda.synchronize()
+            LMA.launches = LMW.launches = LMM.launches = LMN.launches = 0
+        state, met = step(state, batch)
+        res[side] = (grads, {k: float(v) for k, v in met.items()},
+                     {"k5": LMA.launches, "k6": LMW.launches,
+                      "k7": LMM.launches, "k8": LMN.launches})
+        if not all(np.isfinite(list(res[side][1].values()))):
+            fail(f"train_lm_vs_plain {name}: {side} metrics {res[side][1]}")
+    (cg, cm, _), (gg, gm, launches) = res["cpu"], res["card"]
+    loss_rel = abs(gm["loss"] - cm["loss"]) / abs(cm["loss"])
+    norm_rel = abs(gm["grad_norm"] - cm["grad_norm"]) / cm["grad_norm"]
+    leaf = max(float((gg[k] - cg[k]).abs().max())
+               / max(float(cg[k].abs().max()), 1e-30) for k in cg)
+    if not (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_NORM_RTOL
+            and leaf <= TRAIN_LEAF_LIMIT):
+        fail(f"train_lm_vs_plain {name}: loss rel {loss_rel}, grad_norm rel "
+             f"{norm_rel}, worst leaf {leaf}")
+    per = 2 if cfg.remat != "none" else 1
+    mixers = mixer_counts(cfg)
+    want = {"k5": per * mixers["attention"], "k6": per * mixers["rwkv6"],
+            "k7": per * mixers["mamba"],
+            "k8": k8_per_forward(cfg) + (per - 1) * (k8_per_forward(cfg) - 1)}
+    if launches != want:
+        fail(f"train_lm_vs_plain {name}: launches {launches}, want {want}")
+    return {"arch": name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "remat": cfg.remat, "loss_cpu": cm["loss"],
+            "loss_card": gm["loss"], "loss_rel_err": loss_rel,
+            "grad_norm_cpu": cm["grad_norm"],
+            "grad_norm_card": gm["grad_norm"], "grad_norm_rel_err": norm_rel,
+            "aux_card": gm["aux"], "worst_leaf_err_over_max": leaf,
+            "leaves": len(cg), "launches": launches}
+
+
+def phase_train_lm_vs_plain():
+    """One AdamW train step card vs CPU (:func:`train_step_pair`) for
+    llama3.2-1b at full width cut to 2 layers (f32, remat full: K5, K8),
+    tiny rwkv6-1.6b (K6; its time-mix made live) and tiny jamba (K7, K5
+    and the MoE aux loss)."""
+    from repro_torch import models
+    from repro_torch.configs import base as CB
+    t0 = time.perf_counter()
+    f32 = dict(dtype="float32", param_dtype="float32")
+    runs = []
+    cfg = CB.get_config("llama3.2-1b").replace(num_layers=2, **f32)
+    model = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    runs.append(train_step_pair("llama3.2-1b", cfg, model))
+    del model
+    for arch in ("rwkv6-1.6b", JAMBA):
+        cfg = catalog.tiny(CB.get_config(arch)).replace(**f32)
+        model = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+        if cfg.rwkv6 is not None:
+            with torch.no_grad():
+                live_time_mix(model, torch.Generator().manual_seed(1))
+        runs.append(train_step_pair(f"tiny {arch}", cfg, model))
+    if not runs[-1]["aux_card"] > 0:
+        fail("train_lm_vs_plain: jamba's MoE aux loss is 0")
+    gc.collect()
+    emit({"phase": "train_lm_vs_plain", "runs": runs,
+          "limits": {"loss_rel": TRAIN_LOSS_RTOL,
+                     "grad_norm_rel": TRAIN_NORM_RTOL,
+                     "leaf_over_max": TRAIN_LEAF_LIMIT},
+          "seconds": time.perf_counter() - t0})
+    return {k: sum(r["launches"][k] for r in runs) for k in ("k6", "k7")}
+
+
+def phase_train_at_size():
+    """llama3.2-1b at full width and depth (1 235 814 400 parameters,
+    bf16, remat full, logit_chunk 512, AdamW at the reference's defaults)
+    trained TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens through
+    ``repro_torch.launch.train.train_loop`` (PrefetchLoader, HeartbeatBoard,
+    no checkpoint): per step loss, grad_norm, seconds and launches; the
+    median step seconds over steps 2..8, tokens/s, peak bytes, one more
+    step under torch.profiler for the device's idle share and its largest
+    kernels, then 7 steps fed by the corpus directly (the loader's threads
+    gone) for the host's share of the loop, the loader's empty_gets / gets
+    and the monitor's ready list.  Fails unless every
+    loss and grad_norm is finite, step 0's loss lies within 2 of ln V, and
+    every step launched K5 2 x layers times and K8 (2 x layers + 1) +
+    2 x layers times (the forward's and remat's recompute)."""
+    import math
+
+    from repro_torch.configs import base as CB
+    from repro_torch.launch import train as LT
+    from repro_torch.train import TrainConfig
+    t0 = time.perf_counter()
+    cfg = CB.get_config(TRAIN_ARCH)
+    tcfg = TrainConfig()
+    L = cfg.num_layers
+    want = {"k5": 2 * L, "k8": (2 * L + 1) + 2 * L}
+    steps = []
+    last = [time.perf_counter()]
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append({"step": step, "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "seconds": now - last[0],
+                      "k5": LMA.launches, "k5_tc": LMA.tc_launches,
+                      "k8": LMN.launches})
+        LMA.launches = LMA.tc_launches = LMN.launches = 0
+        last[0] = time.perf_counter()
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LMA.launches = LMA.tc_launches = LMN.launches = 0
+    last[0] = time.perf_counter()
+    res = LT.train_loop(cfg, tcfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                        None, log_every=1, device=DEV, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    loader, ready = res["loader"], res["monitor"].ready
+    for s in steps:
+        if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])):
+            fail(f"train_at_size: step {s}")
+        if s["k5"] != want["k5"] or s["k5_tc"] != want["k5"] \
+                or s["k8"] != want["k8"]:
+            fail(f"train_at_size: step {s['step']} launched K5 {s['k5']} "
+                 f"({s['k5_tc']} on the tensor cores), K8 {s['k8']}; want "
+                 f"{want}")
+    ln_v = math.log(cfg.vocab_size)
+    if not abs(steps[0]["loss"] - ln_v) <= 2.0:
+        fail(f"train_at_size: step 0 loss {steps[0]['loss']}, ln V {ln_v}")
+    # one more step, traced: the device's busy seconds over the step's
+    # own wall (the profiler's start and stop outside it), and the kernels
+    # that took the most device time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    step_fn = LT.build(cfg, tcfg)
+    corpus = SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH))
+    batch = corpus.batch_at(TRAIN_STEPS)
+    state = res["state"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t1
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_device) * 1e-6
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:12]
+    top = [{"kernel": e.key[:90], "calls": e.count,
+            "device_seconds": e.self_device_time_total * 1e-6} for e in top]
+    kernel_s = lambda name: sum(e.self_device_time_total for e in on_device
+                                if name in e.key) * 1e-6
+    k5_s, k8_s = kernel_s("flash_attention"), kernel_s("rmsnorm")
+    # then TRAIN_STEPS - 1 steps fed by the corpus directly, with the
+    # loader's threads gone: the host's share the loop adds
+    direct = []
+    for i in range(TRAIN_STEPS + 1, 2 * TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state, met = step_fn(state, corpus.batch_at(i))
+        float(met["loss"])
+        torch.cuda.synchronize()
+        direct.append(time.perf_counter() - t2)
+    step_s = float(np.median([s["seconds"] for s in steps[1:]]))
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    del res, state
+    gc.collect()
+    emit({"phase": "train_at_size", "arch": TRAIN_ARCH,
+          "params": n_params, "layers": L, "dtype": cfg.dtype,
+          "remat": cfg.remat, "logit_chunk": cfg.logit_chunk,
+          "optimizer": tcfg.optimizer, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "steps": steps,
+          "median_step_seconds_2_8": step_s,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+          "peak_bytes": peak,
+          "k5_per_step": want["k5"], "k8_per_step": want["k8"],
+          "direct_median_step_seconds": float(np.median(direct)),
+          "direct_step_seconds": direct,
+          "traced_step_seconds": traced_s,
+          "device_busy_seconds": busy,
+          "device_idle_share": (1.0 - busy / traced_s) if busy > 0 else None,
+          "k5_device_seconds": k5_s, "k8_device_seconds": k8_s,
+          "top_device_kernels": top,
+          "loader_empty_gets": loader["empty_gets"],
+          "loader_gets": loader["gets"], "monitor_ready": ready,
+          "seconds": time.perf_counter() - t0})
+    return {"k5": want["k5"] * TRAIN_STEPS, "k8": want["k8"] * TRAIN_STEPS,
+            "k5_per_step": want["k5"], "k8_per_step": want["k8"]}
+
+
+def phase_train_resume():
+    """examples/train_resume.py's flow through the port's
+    ``launch.train.main`` on the card: tiny llama, 30 steps uninterrupted;
+    then die after step 18 with a checkpoint every 10 and rerun to 30.
+    The resumed steps (11-29: the loop resumes after the restored step)
+    equal the uninterrupted run's losses within RESUME_RTOL."""
+    from repro_torch.launch import train as LT
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log, \
+            tempfile.TemporaryDirectory() as d:
+        whole = LT.main(RESUME_ARGV)
+        died = LT.main(RESUME_ARGV + ["--ckpt-dir", d, "--ckpt-every", "10",
+                                      "--fail-at", "18"])
+        resumed = LT.main(RESUME_ARGV + ["--ckpt-dir", d, "--ckpt-every",
+                                         "10"])
+    if died.get("died_at") != 18 or "[resume] restored step 10" not in \
+            log.getvalue():
+        fail(f"train_resume: died {died.get('died_at')}, log "
+             f"{log.getvalue()[-300:]}")
+    ref_l = whole["losses"][11:]
+    got = resumed["losses"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, ref_l)) \
+        if len(got) == len(ref_l) == 19 else float("inf")
+    if not worst <= RESUME_RTOL:
+        fail(f"train_resume: {len(got)} resumed losses, worst rel {worst}")
+    emit({"phase": "train_resume", "resumed_steps": [11, 29],
+          "losses_compared": len(got), "worst_rel_err": worst,
+          "limit": RESUME_RTOL, "seconds": time.perf_counter() - t0})
+
+
 def mamba_entries(serve_launches, scan_err):
     """K7 at one prefill layer of jamba-1.5-large (B 1, T 1024, d_in
     16 384, N 16), f32: device ms, with-host ms, plain ms, the bound, the
@@ -3062,6 +3503,12 @@ def main():
     phase_moe_lm_vs_plain()
     jamba_launches = phase_serve_at_size("serve_jamba_at_size", JAMBA,
                                          JAMBA_LAYERS)
+    t_train = time.perf_counter()
+    grad_excess_by_kernel = phase_train_grad_vs_plain()
+    train_lm_launches = phase_train_lm_vs_plain()
+    train_launches = phase_train_at_size()
+    phase_train_resume()
+    emit({"phase": "training", "seconds": time.perf_counter() - t_train})
     max_abs_err = phase_kernel_vs_plain()
     open_abs_err = phase_open_kernel_vs_plain()
     step_abs_err = phase_step_kernels_vs_plain()
@@ -3083,8 +3530,23 @@ def main():
                             rms_err)
                + rwkv6_entries(rwkv6_launches, scan_err)
                + mamba_entries(jamba_launches, mamba_err))
+    train_keys = {"flash_attention": ("k5", "k5_per_step"),
+                  "rmsnorm": ("k8", "k8_per_step")}
     for entry in entries:
         entry["floor_ms"] = floor
+        # the training path: launches of train_at_size's steps (K5, K8),
+        # of train_lm_vs_plain's card steps (K6, K7), and the gradient's
+        # worst excess over its limit in train_grad_vs_plain
+        if entry["name"] in train_keys:
+            total, per = train_keys[entry["name"]]
+            entry["train_launches"] = train_launches[total]
+            entry["train_launches_per_step"] = train_launches[per]
+        elif entry["name"] in ("rwkv6_scan", "mamba_scan"):
+            entry["train_launches"] = train_lm_launches[
+                "k6" if entry["name"] == "rwkv6_scan" else "k7"]
+        kern = entry["name"].split("_jamba")[0].split("_decode")[0]
+        if kern in grad_excess_by_kernel:
+            entry["grad_max_err_over_limit"] = grad_excess_by_kernel[kern]
         # the sweep layer's path: K1 in the closed grids, K1-open in the
         # arrival grid (phase diagrams, its own counts)
         if entry["name"] in ("lock_sim_block", "lock_sim_block_open"):

@@ -15,7 +15,12 @@ and ``numpy`` only, and nothing of ``repro``.  Ported so far:
   ``repro_torch.models``) of the dense decoders, rwkv6, jamba (mamba,
   attention and MoE layers) and the MoE decoders, through the
   hand-written CUDA kernels ``repro_torch.kernels.flash_attention``,
-  ``rwkv6_scan``, ``mamba_scan`` and ``rmsnorm``.
+  ``rwkv6_scan``, ``mamba_scan`` and ``rmsnorm``;
+* training (``repro_torch.launch.train``: ``repro_torch.data.
+  PrefetchLoader`` and ``repro_torch.runtime.HeartbeatBoard`` around
+  ``repro_torch.train.make_train_step`` over ``repro_torch.models.
+  loss_fn``), through the same kernels as autograd functions whose
+  backwards are tensor code beside them.
 
 Entry points run on the card (``device=None``) and raise without one; pass
 ``device="cpu"`` for the plain PyTorch versions.

@@ -12,6 +12,13 @@ SIMT kernel (``csrc/flash_attention.cu``).
 
 Layout: q (BH, Sq, hd), k / v (BKV, Sk, hd); :func:`repro_torch.kernels.ops.attention`
 maps the model's (B, S, H, hd) tensors to it and back.
+
+Training goes through :class:`FlashAttention`, an autograd function whose
+forward is the launch and whose backward is
+:func:`flash_attention_backward`: tensor code, the same on both devices,
+that recomputes the scores from the saved q, k, v and output over tiles
+of at most :data:`BWD_TILE` query rows (the reference trains through XLA's
+autodiff of its own attention and has no backward kernel).
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ TC_HEAD_DIMS = (64, 128)
 #: K5 against its plain version: max|d| within this in f32; in bf16 this
 #: caps the limit of :func:`excess`.
 LIMIT = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: Query rows a tile of the backward recomputes its scores for.
+BWD_TILE = 512
 
 
 def tensor_core_path(dtype, hd) -> bool:
@@ -94,16 +103,9 @@ def check_operands(q, k, v):
                              f"aligned")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
-    """q: (BH, Sq, hd); k, v: (BKV, Sk, hd).  Returns (BH, Sq, hd) in q's
-    dtype.
-
-    CPU tensors go through the plain version.  Other tensors are checked
-    (:func:`check_operands`) and, on CUDA, launch one of the two kernels on
-    the current stream, adding one to ``flash_attention.launches`` and, on
-    the tensor-core path, to ``flash_attention.tc_launches``; there is no
-    fallback."""
+def _forward(q, k, v, causal, window, softcap):
+    """:func:`flash_attention` outside autograd: the launch, or the plain
+    version on CPU tensors."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window, softcap=softcap)
@@ -123,6 +125,99 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     flash_attention.launches += 1
     flash_attention.tc_launches += int(tensor_core_path(q.dtype, hd))
     return out
+
+
+def flash_attention_backward(q, k, v, o, do, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0,
+                             tile: int = BWD_TILE):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` for the
+    output's gradient ``do``, from the saved q, k, v and output o.  Over
+    tiles of at most ``tile`` query rows it recomputes the scores (with the
+    softcap, then the causal / window mask: masked scores get no gradient)
+    and P, forms ``dS = P * (dP - rowsum(dO * O))`` with ``dP = dO V^T``,
+    times ``1 - tanh^2`` under a softcap, and sums dk and dv over each KV
+    head's group of query heads.  Accumulates in f32 and returns the
+    inputs' dtypes.  Under causal masking a tile reads only the keys up to
+    its last row."""
+    BH, Sq, hd = q.shape
+    BKV, Sk, _ = k.shape
+    g = BH // BKV
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    qg, og, dog = (t.reshape(BKV, g, Sq, hd) for t in (q, o, do))
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((BKV, g, Sq, hd), dtype=f32, device=q.device)
+    dk = torch.zeros((BKV, Sk, hd), dtype=f32, device=q.device)
+    dv = torch.zeros((BKV, Sk, hd), dtype=f32, device=q.device)
+    for i0 in range(0, Sq, tile):
+        i1 = min(Sq, i0 + tile)
+        # keys past the tile's last row are masked for all its rows (a row
+        # masked whole lies at or past Sk, where hi is Sk)
+        hi = min(Sk, i1) if causal else Sk
+        qt, dot = qg[:, :, i0:i1].float(), dog[:, :, i0:i1].float()
+        kt, vt = kf[:, :hi], vf[:, :hi]
+        s = torch.einsum("bgqd,bkd->bgqk", qt, kt) * scale
+        if softcap:
+            th = torch.tanh(s / softcap)
+            s = th * softcap
+        qp = torch.arange(i0, i1, device=q.device)[:, None]
+        kp = torch.arange(hi, device=q.device)[None, :]
+        m = torch.ones((i1 - i0, hi), dtype=torch.bool, device=q.device)
+        if causal:
+            m &= qp >= kp
+        if window:
+            m &= (qp - kp) < window
+        p = torch.softmax(torch.where(m, s, -1e30), dim=-1)
+        del s
+        rowsum = (dot * og[:, :, i0:i1].float()).sum(-1, keepdim=True)
+        ds = torch.einsum("bgqd,bkd->bgqk", dot, vt).sub_(rowsum).mul_(p)
+        ds.masked_fill_(~m, 0.0)
+        if softcap:
+            ds.mul_(1.0 - th * th)
+            del th
+        dq[:, :, i0:i1] = torch.einsum("bgqk,bkd->bgqd", ds, kt) * scale
+        dk[:, :hi] += torch.einsum("bgqk,bgqd->bkd", ds, qt) * scale
+        dv[:, :hi] += torch.einsum("bgqk,bgqd->bkd", p, dot)
+    return (dq.reshape(BH, Sq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """K5 under autograd: the forward launches the kernel (the plain
+    version on CPU tensors), the backward is
+    :func:`flash_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        o = _forward(q, k, v, causal, window, softcap)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = (causal, window, softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, softcap = ctx.mask
+        return (*flash_attention_backward(q, k, v, o, do, causal=causal,
+                                          window=window, softcap=softcap),
+                None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """q: (BH, Sq, hd); k, v: (BKV, Sk, hd).  Returns (BH, Sq, hd) in q's
+    dtype.
+
+    CPU tensors go through the plain version.  Other tensors are checked
+    (:func:`check_operands`) and, on CUDA, launch one of the two kernels on
+    the current stream, adding one to ``flash_attention.launches`` and, on
+    the tensor-core path, to ``flash_attention.tc_launches``; there is no
+    fallback.  Where q, k or v requires grad (and grad mode is on) the call
+    goes through :class:`FlashAttention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, softcap)
 
 
 flash_attention.launches = 0

@@ -24,6 +24,13 @@ changes a bit of the result: every sum's order is fixed by N alone.
 
 Layout: dt, x (B, T, d); Bm, Cm (B, T, N); a (d, N) -- the model's own, so
 :func:`repro_torch.kernels.ops.selective_scan` maps nothing.
+
+Training goes through :class:`MambaScan`, an autograd function whose
+forward is the launch and whose backward differentiates
+:func:`ssm_chunk_scan`, the port of the reference model's
+``_ssm_chunk_scan`` (``repro/models/mamba.py``), recomputed from the saved
+inputs: that chunked scan, each chunk under activation checkpointing, is
+what the reference differentiates when it trains.
 """
 
 from __future__ import annotations
@@ -31,14 +38,19 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import lm_lib, ref
+from .grad import scan_grads
 
 #: State sizes the kernel is built for: the catalog's (16), the tiny
 #: configs' (4) and the JAX kernel tests' (8).
 STATE_SIZES = (4, 8, 16)
 #: Most time steps the kernel stages in shared memory at once.
 MAX_CHUNK = 128
+#: Steps a chunk of :func:`ssm_chunk_scan` holds (the reference's
+#: ``_CHUNK``).
+SCAN_CHUNK = 64
 
 
 def occupancy(device=None, chunk: int = 64) -> dict:
@@ -100,17 +112,9 @@ def check_operands(dt, x, Bm, Cm, a, chunk):
                              f"aligned")
 
 
-def mamba_scan(dt, x, Bm, Cm, a, *, chunk: int = 64):
-    """dt, x: (B, T, d), dt > 0; Bm, Cm: (B, T, N); a: (d, N), negative.
-    Returns (y (B, T, d) f32, s_T (B, d, N) f32).
-
-    CPU tensors go through the plain version.  Other tensors are checked
-    (:func:`check_operands`) and, on CUDA, launch the kernel on the current
-    stream, adding one to ``mamba_scan.launches`` and setting
-    ``mamba_scan.lanes_per_channel`` and ``mamba_scan.channels_per_lane``
-    to the split the launch took; there is no fallback.  ``chunk`` is how
-    many steps the kernel stages at once (at most T); the result does not
-    depend on it."""
+def _forward(dt, x, Bm, Cm, a, chunk):
+    """:func:`mamba_scan` outside autograd: the launch, or the plain
+    version on CPU tensors."""
     if x.device.type == "cpu":
         return ref.mamba_scan_ref(dt, x, Bm, Cm, a)
     check_operands(dt, x, Bm, Cm, a, chunk)
@@ -128,6 +132,72 @@ def mamba_scan(dt, x, Bm, Cm, a, *, chunk: int = 64):
     mamba_scan.launches += 1
     mamba_scan.lanes_per_channel, mamba_scan.channels_per_lane = split
     return y, sT
+
+
+def _ssm_steps(s, dt, Bm, Cm, x, a):
+    """The steps of one chunk from state s: (s after them, y (B, c, d))."""
+    ys = []
+    for t in range(dt.shape[1]):
+        da = torch.exp(dt[:, t, :, None] * a)
+        s = s * da + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", s, Cm[:, t]))
+    return s, torch.stack(ys, dim=1)
+
+
+def ssm_chunk_scan(dt, x, Bm, Cm, a, chunk: int = SCAN_CHUNK):
+    """The selective scan as differentiable tensor code, in f32: the port
+    of the reference model's ``_ssm_chunk_scan``, the steps of each
+    ``chunk`` under activation checkpointing (the last chunk may be short;
+    the reference pads it with dt = 0, which leaves the state as it is).
+    Returns (y (B, T, d), s_T (B, d, N)); the reference's returns y
+    alone."""
+    B, T, d = x.shape
+    s = torch.zeros((B, d, a.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    dt, x, Bm, Cm, a = (v.float() for v in (dt, x, Bm, Cm, a))
+    ys = []
+    for t0 in range(0, T, chunk):
+        c = slice(t0, t0 + chunk)
+        s, y = checkpoint(_ssm_steps, s, dt[:, c], Bm[:, c], Cm[:, c],
+                          x[:, c], a, use_reentrant=False)
+        ys.append(y)
+    y = torch.cat(ys, dim=1) if ys else x.new_zeros((B, 0, d))
+    return y, s
+
+
+class MambaScan(torch.autograd.Function):
+    """K7 under autograd: the forward launches the kernel (the plain
+    version on CPU tensors), the backward differentiates
+    :func:`ssm_chunk_scan` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, dt, x, Bm, Cm, a, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dt, x, Bm, Cm, a)
+        return _forward(dt, x, Bm, Cm, a, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        return (*scan_grads(ssm_chunk_scan, ctx.saved_tensors,
+                            ctx.needs_input_grad[:5], (gy, gs)), None)
+
+
+def mamba_scan(dt, x, Bm, Cm, a, *, chunk: int = 64):
+    """dt, x: (B, T, d), dt > 0; Bm, Cm: (B, T, N); a: (d, N), negative.
+    Returns (y (B, T, d) f32, s_T (B, d, N) f32).
+
+    CPU tensors go through the plain version.  Other tensors are checked
+    (:func:`check_operands`) and, on CUDA, launch the kernel on the current
+    stream, adding one to ``mamba_scan.launches`` and setting
+    ``mamba_scan.lanes_per_channel`` and ``mamba_scan.channels_per_lane``
+    to the split the launch took; there is no fallback.  ``chunk`` is how
+    many steps the kernel stages at once (at most T); the result does not
+    depend on it.  Where an input requires grad (and grad mode is on) the
+    call goes through :class:`MambaScan`."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, x, Bm, Cm, a)):
+        return MambaScan.apply(dt, x, Bm, Cm, a, chunk)
+    return _forward(dt, x, Bm, Cm, a, chunk)
 
 
 mamba_scan.launches = 0

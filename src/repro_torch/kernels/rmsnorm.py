@@ -14,6 +14,12 @@ the registers.  The launcher picks the threads a row from
 the rows, D and the card's resident threads: a warp or a few a row when
 rows are many, a 256-thread block a row when they are few (a decode
 step), so that a launch costs one trip to memory beside its own floor.
+
+Training goes through :class:`RMSNorm`, an autograd function whose
+forward is the launch above and whose backward is
+:func:`rmsnorm_backward`, the closed form in f32 (tensor code, the same on
+both devices: the reference trains through XLA's autodiff of its own
+``layers.rmsnorm`` and has no backward kernel).
 """
 
 from __future__ import annotations
@@ -47,14 +53,9 @@ def occupancy(device=None) -> dict:
     return res
 
 
-def rmsnorm(x, w, eps: float = 1e-6):
-    """x: (..., D) f32 or bf16; w: (D,) in x's dtype.  Returns x's dtype.
-
-    CPU tensors go through the plain version.  CUDA tensors launch the
-    kernel on the current stream after checking dtype, device, shape,
-    contiguity and 16-byte vectors (D a multiple of 4 f32 / 8 bf16, rows
-    aligned) (``ValueError`` / ``TypeError``), adding one to
-    ``rmsnorm.launches``; there is no fallback."""
+def _forward(x, w, eps):
+    """:func:`rmsnorm` outside autograd: the launch, or the plain version
+    on CPU tensors."""
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
     if x.dtype not in lm_lib.DTYPE_CODE or w.dtype != x.dtype:
@@ -86,6 +87,50 @@ def rmsnorm(x, w, eps: float = 1e-6):
                   lm_lib.DTYPE_CODE[x.dtype])
     rmsnorm.launches += 1
     return out
+
+
+def rmsnorm_backward(x, w, g, eps: float = 1e-6):
+    """The gradients of ``y = x * r * (1 + w)``, ``r = rsqrt(mean(x^2) +
+    eps)``, for the output's gradient g: in f32, with x^ = x * r,
+    ``dx = r * ((1 + w) g - x^ * mean(x^ (1 + w) g))`` and ``dw = sum over
+    rows of g x^``, returned in x's and w's dtypes."""
+    xf, gf = x.float(), g.float()
+    r = torch.rsqrt(torch.mean(torch.square(xf), dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    gw = gf * (1.0 + w.float())
+    dx = r * (gw - xhat * torch.mean(xhat * gw, dim=-1, keepdim=True))
+    dw = (gf * xhat).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class RMSNorm(torch.autograd.Function):
+    """K8 under autograd: the forward launches the kernel (the plain
+    version on CPU tensors), the backward is :func:`rmsnorm_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _forward(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return (*rmsnorm_backward(x, w, g, ctx.eps), None)
+
+
+def rmsnorm(x, w, eps: float = 1e-6):
+    """x: (..., D) f32 or bf16; w: (D,) in x's dtype.  Returns x's dtype.
+
+    CPU tensors go through the plain version.  CUDA tensors launch the
+    kernel on the current stream after checking dtype, device, shape,
+    contiguity and 16-byte vectors (D a multiple of 4 f32 / 8 bf16, rows
+    aligned) (``ValueError`` / ``TypeError``), adding one to
+    ``rmsnorm.launches``; there is no fallback.  Where x or w requires
+    grad (and grad mode is on) the call goes through :class:`RMSNorm`."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return RMSNorm.apply(x, w, eps)
+    return _forward(x, w, eps)
 
 
 rmsnorm.launches = 0

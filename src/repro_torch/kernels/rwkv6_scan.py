@@ -19,6 +19,13 @@ sum's order is fixed by n alone.
 Layout: r, k, v, w (BH, T, n); u (BH, n); s0 (BH, n, n) or None;
 :func:`repro_torch.kernels.ops.wkv` maps the model's (B, T, D) tensors to
 it and back.
+
+Training goes through :class:`RWKV6Scan`, an autograd function whose
+forward is the launch and whose backward differentiates
+:func:`wkv_chunk_scan`, the port of the reference model's
+``_wkv_chunk_scan`` (``repro/models/rwkv6.py``), recomputed from the saved
+inputs: that chunked scan, each chunk under activation checkpointing, is
+what the reference differentiates when it trains.
 """
 
 from __future__ import annotations
@@ -26,14 +33,19 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import lm_lib, ref
+from .grad import scan_grads
 
 #: Head dims the kernel is built for: the catalog's (64) and the tiny
 #: configs' (16).
 HEAD_DIMS = (16, 64)
 #: Most time steps the kernel stages in shared memory at once.
 MAX_CHUNK = 128
+#: Steps a chunk of :func:`wkv_chunk_scan` holds (the reference's
+#: ``_CHUNK``).
+SCAN_CHUNK = 64
 
 
 def occupancy(device=None, chunk: int = 64) -> dict:
@@ -95,16 +107,9 @@ def check_operands(r, k, v, w, u, s0, chunk):
                              f"aligned")
 
 
-def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 64):
-    """r, k, v, w: (BH, T, n), w the decay in (0, 1); u: (BH, n); s0:
-    (BH, n, n) or None.  Returns (y (BH, T, n) f32, S_T (BH, n, n) f32).
-
-    CPU tensors go through the plain version.  Other tensors are checked
-    (:func:`check_operands`) and, on CUDA, launch the kernel on the current
-    stream, adding one to ``rwkv6_scan.launches`` and setting
-    ``rwkv6_scan.ctas_per_head`` to the CTAs a head the launch took; there
-    is no fallback.  ``chunk`` is how many steps the kernel stages at once;
-    the result does not depend on it."""
+def _forward(r, k, v, w, u, s0, chunk):
+    """:func:`rwkv6_scan` outside autograd: the launch, or the plain
+    version on CPU tensors."""
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, w, u, s0)
     check_operands(r, k, v, w, u, s0, chunk)
@@ -122,6 +127,70 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 64):
     rwkv6_scan.launches += 1
     rwkv6_scan.ctas_per_head = n // cols.value
     return y, sT
+
+
+def _wkv_steps(S, r, k, v, w, u):
+    """The steps of one chunk from state S: (S after them, y (BH, c, n))."""
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        ys.append(torch.einsum("bk,bkv->bv", r[:, t], S + u[..., None] * kv))
+        S = w[:, t, :, None] * S + kv
+    return S, torch.stack(ys, dim=1)
+
+
+def wkv_chunk_scan(r, k, v, w, u, s0=None, chunk: int = SCAN_CHUNK):
+    """The WKV recurrence as differentiable tensor code, in the kernel's
+    layout and f32: the port of the reference model's ``_wkv_chunk_scan``,
+    the steps of each ``chunk`` under activation checkpointing (the last
+    chunk may be short; the reference pads it with w = 1, which leaves the
+    state as it is).  Returns (y (BH, T, n), S_T (BH, n, n))."""
+    BH, T, n = r.shape
+    S = (torch.zeros((BH, n, n), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    r, k, v, w, u = (a.float() for a in (r, k, v, w, u))
+    ys = []
+    for t0 in range(0, T, chunk):
+        c = slice(t0, t0 + chunk)
+        S, y = checkpoint(_wkv_steps, S, r[:, c], k[:, c], v[:, c], w[:, c],
+                          u, use_reentrant=False)
+        ys.append(y)
+    y = torch.cat(ys, dim=1) if ys else r.new_zeros((BH, 0, n))
+    return y, S
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """K6 under autograd: the forward launches the kernel (the plain
+    version on CPU tensors), the backward differentiates
+    :func:`wkv_chunk_scan` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return _forward(r, k, v, w, u, s0, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        return (*scan_grads(wkv_chunk_scan, ctx.saved_tensors,
+                            ctx.needs_input_grad[:6], (gy, gs)), None)
+
+
+def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 64):
+    """r, k, v, w: (BH, T, n), w the decay in (0, 1); u: (BH, n); s0:
+    (BH, n, n) or None.  Returns (y (BH, T, n) f32, S_T (BH, n, n) f32).
+
+    CPU tensors go through the plain version.  Other tensors are checked
+    (:func:`check_operands`) and, on CUDA, launch the kernel on the current
+    stream, adding one to ``rwkv6_scan.launches`` and setting
+    ``rwkv6_scan.ctas_per_head`` to the CTAs a head the launch took; there
+    is no fallback.  ``chunk`` is how many steps the kernel stages at once;
+    the result does not depend on it.  Where an input requires grad (and
+    grad mode is on) the call goes through :class:`RWKV6Scan`."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
+        return RWKV6Scan.apply(r, k, v, w, u, s0, chunk)
+    return _forward(r, k, v, w, u, s0, chunk)
 
 
 rwkv6_scan.launches = 0

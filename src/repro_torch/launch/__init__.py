@@ -1,1 +1,2 @@
-"""Command-line drivers of the PyTorch port (:mod:`.serve`)."""
+"""Command-line entry points of the PyTorch port (:mod:`.serve`,
+:mod:`.train`)."""

@@ -2,6 +2,7 @@
 decoder-only stacks (dense, MoE, hybrid attention + mamba, rwkv6).
 
     init_params(cfg, generator=None, device=None) -> Transformer (nn.Module)
+    loss_fn(cfg, params, batch)       -> (loss, {"ce", "aux"})  [train_step]
     prefill(cfg, params, batch)       -> (logits, cache)     [prefill_step]
     decode_step(cfg, params, cache, tokens) -> (logits, cache')  [serve_step]
     init_cache(cfg, batch, max_seq, device=None) -> empty decode cache
@@ -12,9 +13,11 @@ decoder-only stacks (dense, MoE, hybrid attention + mamba, rwkv6).
 ``device="cpu"`` for the plain versions, as the tests do.  ``prefill`` and
 ``decode_step`` run where the parameters are.  On the card, prefill
 attention launches K5, every rwkv6 time-mix K6 (prefill and decode), every
-mamba mixer K7 in prefill, and every RMSNorm K8 (a mamba mixer's own
-included); MoE experts are plain batched matmuls.  ``loss_fn`` waits for
-the training slice; encoder-decoder configs raise ``NotImplementedError``.
+mamba mixer K7 in prefill and training, and every RMSNorm K8 (a mamba
+mixer's own included); MoE experts are plain batched matmuls.  Under
+autograd (``loss_fn`` on unfrozen parameters, as the train step has them)
+each kernel's backward is tensor code beside it.  Encoder-decoder configs
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,6 +55,14 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     return transformer.decode_step(cfg, params, cache, tokens)
 
 
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Next-token CE (+ MoE aux) of ``batch`` (tokens, labels, optional
+    mask) where the parameters are: (total, {"ce", "aux"})."""
+    dev = _device_of(params)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    return transformer.loss_fn(cfg, params, batch)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     return transformer.init_cache(cfg, batch, max_seq,
                                   resolve_device(device))
@@ -67,12 +78,11 @@ def active_param_count(cfg: ModelConfig) -> int:
     if cfg.moe is None:
         return total
     m = cfg.moe
-    n_moe_layers = sum(1 for i in range(cfg.num_layers)
-                       if cfg.pattern[i % cfg.layers_per_period].ffn == "moe")
     per_expert = 3 * cfg.d_model * m.d_ff
-    inactive = n_moe_layers * (m.num_experts - m.top_k) * per_expert
+    inactive = transformer.moe_layer_count(cfg) * (m.num_experts - m.top_k) \
+        * per_expert
     return total - inactive
 
 
-__all__ = ["init_params", "prefill", "decode_step", "init_cache",
+__all__ = ["init_params", "loss_fn", "prefill", "decode_step", "init_cache",
            "param_count", "active_param_count", "transformer"]

@@ -12,6 +12,13 @@ reference has them.  A part's sub-dict (the MoE's ``shared`` expert) is
 flattened into the part as ``<sub>_<name>``.  These functions map numpy
 trees (``jax.tree.map(np.asarray, tree)`` on the reference side) to and
 from the port's objects; they import nothing of JAX.
+
+Training names each parameter leaf by its path in the reference's tree
+(:func:`param_leaves`: ``embed/tok``, ``final_norm``,
+``stack/<j>/<part>/<name>``, ``stack/<j>/moe/shared/w_gate``), so that the
+optimizer sees the reference's leaves (a stacked leaf is one tensor over
+the periods, as its weight decay and Adafactor's factoring and scales
+read it) and a checkpoint holds them under the reference's paths.
 """
 
 from __future__ import annotations
@@ -67,6 +74,59 @@ def _flat(part: dict) -> dict:
         else:
             out[k] = v
     return out
+
+
+def _ref_name(name: str) -> str:
+    """A part's flat key as the reference's path inside the part."""
+    for sub in ("shared",):
+        if name.startswith(sub + "_"):
+            return f"{sub}/{name[len(sub) + 1:]}"
+    return name
+
+
+def param_leaves(cfg: ModelConfig, model) -> dict:
+    """The model's parameters by the reference's leaf paths: an unstacked
+    leaf (the embeddings, the final norm) maps to its parameter, a stacked
+    one to the tuple of its layers' parameters in period order (the
+    reference's leaf is their stack)."""
+    out = {f"embed/{k}": v for k, v in model.embed.items()}
+    out["final_norm"] = model.final_norm
+    groups: dict = {}
+    for l, layer in enumerate(model.layers):
+        j, _ = _layer_index(cfg, l)
+        named = [("norm1", layer.norm1), ("norm2", layer.norm2)]
+        for part in _PARTS:
+            if hasattr(layer, part):
+                named += [(f"{part}/{_ref_name(k)}", v)
+                          for k, v in getattr(layer, part).items()]
+        for name, t in named:
+            groups.setdefault(f"stack/{j}/{name}", []).append(t)
+    out.update({k: tuple(v) for k, v in groups.items()})
+    return out
+
+
+def stack_leaf(leaf):
+    """A leaf of :func:`param_leaves` as the reference's tensor (detached;
+    a stacked leaf is a copy)."""
+    if isinstance(leaf, tuple):
+        return torch.stack([t.detach() for t in leaf])
+    return leaf.detach()
+
+
+def load_leaves(cfg: ModelConfig, model, tree) -> None:
+    """Copy ``tree`` (the reference's leaf paths -> numpy arrays or tensors
+    of the reference's shapes, e.g. a restored checkpoint) into the model's
+    parameters, in place."""
+    with torch.no_grad():
+        for path, leaf in param_leaves(cfg, model).items():
+            src = tree[path]
+            if not isinstance(src, torch.Tensor):
+                src = _tensor(src, "cpu")
+            if isinstance(leaf, tuple):
+                for t, s in zip(leaf, src):
+                    t.copy_(s)
+            else:
+                leaf.copy_(src)
 
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None):

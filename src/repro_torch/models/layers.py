@@ -1,13 +1,14 @@
-"""Shared building blocks: inits, norms, rotary embeddings, embeddings and
-the gated FFN.
+"""Shared building blocks: inits, norms, rotary embeddings, embeddings,
+the chunked cross-entropy and the gated FFN.
 
-The port of the serving half of ``repro/models/layers.py``: the same
+The port of ``repro/models/layers.py`` (whisper's gelu MLP waits for the
+enc-dec slice): the same
 functions over dicts of tensors, in the reference's layouts and dtypes.
 Inits draw from an explicit ``torch.Generator`` (not JAX's keys: the two
 give different numbers from one seed; the tests carry JAX's parameters over
 with :func:`repro_torch.models.convert.params_from_numpy`).  The sharding
 annotations of the reference are identities without a mesh and are
-dropped.  The losses wait for the training slice.
+dropped.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rmsnorm import rmsnorm as kernel_rmsnorm
 
@@ -108,6 +110,60 @@ def embed(params, tokens, scale: bool, d_model: int):
 def unembed_logits(params, x, tie: bool):
     w = params["tok"].t() if tie else params["head"]
     return x @ w
+
+
+# --------------------------------------------------------------------------
+# Chunked softmax cross-entropy.  The full (B, S, V) logits of e.g.
+# llama3.2-1b (V = 128 256) at 4 x 2048 tokens are 4.2 GB in f32; a loop
+# over sequence chunks under activation checkpointing keeps one chunk's
+# logits alive at a time, in the forward and in the backward.
+# --------------------------------------------------------------------------
+def _nll(logits, labels):
+    """Per-position negative log-likelihood in f32; logits (..., V),
+    labels (...) integer."""
+    lf = logits.float()
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return torch.logsumexp(lf, dim=-1) - gold
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Stable CE in f32; logits (..., V), labels (...) integer, mask (...)
+    or None: the mean over the positions (the masked mean with a mask)."""
+    nll = _nll(logits, labels)
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+def _chunk_nll(embed_params, tie, x, labels, mask):
+    """(sum of the chunk's masked nll, sum of its mask)."""
+    nll = _nll(unembed_logits(embed_params, x, tie), labels) * mask
+    return torch.sum(nll), torch.sum(mask)
+
+
+def chunked_xent(cfg, embed_params, x, labels, mask=None):
+    """embed -> logits -> CE without materializing (B, S, V): x (B, S, D)
+    final hidden states, labels (B, S), mask (B, S) or None.  Each sequence
+    chunk of ``cfg.logit_chunk`` positions runs under activation
+    checkpointing, as the reference runs its chunk under
+    ``jax.checkpoint``: its logits are recomputed in the backward, never
+    kept.  Unchunked where ``logit_chunk`` is 0 or does not divide S."""
+    B, S, D = x.shape
+    chunk = cfg.logit_chunk
+    if chunk <= 0 or S <= chunk or S % chunk != 0:
+        logits = unembed_logits(embed_params, x, cfg.tie_embeddings)
+        return softmax_xent(logits, labels, mask)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, chunk):
+        c = slice(s0, s0 + chunk)
+        t, n = checkpoint(_chunk_nll, embed_params, cfg.tie_embeddings,
+                          x[:, c], labels[:, c], mask[:, c],
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
 
 
 # --------------------------------------------------------------------------

@@ -7,8 +7,9 @@ the gate matrix, no capacity dropping.  Without a mesh the reference's
 prefill and decode both take that path (``moe_forward``, ``moe_decode``),
 and the port's layers call it in both: decode reads every expert's
 weights.  The expert products are plain batched matmuls, as the reference
-leaves them to XLA outside any Pallas kernel.  The load-balancing loss
-waits for the training slice; the expert-parallel paths (``moe_ep``, the
+leaves them to XLA outside any Pallas kernel.  Training adds the
+Switch-style load-balancing loss (:func:`aux_loss`, ``moe_dense(...,
+with_aux=True)``); the expert-parallel paths (``moe_ep``, the
 ``shard_map`` half of ``moe_decode``) need a mesh.
 
 A shared expert's weights sit in the layer's flat parameter dict as
@@ -56,13 +57,25 @@ def route(mcfg: MoEConfig, router_w, tokens):
     return gates, eidx, probs
 
 
-def moe_dense(mcfg: MoEConfig, params, x, act: str):
-    """x: (B, S, D) -> (B, S, D).  Computes every expert on every token."""
+def aux_loss(mcfg: MoEConfig, probs, eidx):
+    """Switch-style load-balancing loss ``E * sum_e f_e * P_e``: f_e the
+    fraction of routed assignments to expert e, P_e its mean router
+    probability (the gradient flows through P alone)."""
+    E = probs.shape[-1]
+    onehot = torch.nn.functional.one_hot(eidx, E).float()     # (T, k, E)
+    f = onehot.sum(dim=1).mean(dim=0)
+    p = probs.mean(dim=0)
+    return E * torch.sum(f * p)
+
+
+def moe_dense(mcfg: MoEConfig, params, x, act: str, with_aux: bool = False):
+    """x: (B, S, D) -> (B, S, D), and with ``with_aux`` the load-balancing
+    loss beside it (training).  Computes every expert on every token."""
     B, S, D = x.shape
     tokens = x.reshape(B * S, D)
-    gates, eidx, _ = route(mcfg, params["router"], tokens)
+    gates, eidx, probs = route(mcfg, params["router"], tokens)
     gate_mat = torch.zeros((B * S, mcfg.num_experts), dtype=torch.float32,
-                           device=x.device).scatter_(1, eidx, gates)
+                           device=x.device).scatter(1, eidx, gates)
 
     h = tokens @ params["w_gate"]                             # (E, T, F)
     u = tokens @ params["w_in"]
@@ -73,4 +86,6 @@ def moe_dense(mcfg: MoEConfig, params, x, act: str):
         shared = {k[len(SHARED):]: v for k, v in params.items()
                   if k.startswith(SHARED)}
         out = out + mlp(shared, x, act)
+    if with_aux:
+        return out, aux_loss(mcfg, probs, eidx)
     return out

@@ -1,7 +1,8 @@
-"""Decoder-stack assembly: init / prefill / decode for decoder-only stacks
-of attention, rwkv6 and mamba layers with dense, MoE or rwkv FFNs.
+"""Decoder-stack assembly: init / forward / loss / prefill / decode for
+decoder-only stacks of attention, rwkv6 and mamba layers with dense, MoE or
+rwkv FFNs.
 
-The port of the serving half of ``repro/models/transformer.py``.  The
+The port of ``repro/models/transformer.py``.  The
 reference stacks each pattern position's parameters over periods and runs
 the stack under one ``lax.scan`` with the per-layer window and rope theta
 as scan data; here the stack is an ``nn.ModuleList`` of :class:`Layer`
@@ -9,8 +10,17 @@ looped in Python, and each layer carries its window and theta as plain
 numbers (:func:`layer_schedules`).
 
 Enc-dec configs raise ``NotImplementedError`` naming the slice that will
-port them.  The losses (and the MoE load-balancing loss) wait for the
-training slice.
+port them.
+
+Training (:func:`loss_fn`) runs :func:`forward_hidden` in ``mode="train"``:
+the MoE layers add their load-balancing loss, and under ``cfg.remat !=
+"none"`` each layer runs under activation checkpointing (recomputed in the
+backward, kernels included).  torch has no counterpart of the reference's
+``"dots"`` policy (keep the matmul outputs, recompute the rest), so
+``"dots"`` recomputes the whole layer as ``"full"`` does: the gradients are
+the same, the memory lower and the work higher.  The parameters are built
+frozen (``requires_grad=False``) for serving; the train step's
+``init_state`` unfreezes them.
 
 Cache: ``{"layers": [one dict per layer], "len": (B,) int32}``.  An
 attention layer's entry is ``{"k", "v"}``, each (B, KV, Smax, hd)
@@ -29,6 +39,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 
@@ -36,8 +47,8 @@ from . import attention as attn
 from . import mamba as mam
 from . import moe as moe_mod
 from . import rwkv6 as rwkv
-from .layers import (dtype_of, embed, init_embed, init_mlp, mlp, rmsnorm,
-                     unembed_logits, zeros)
+from .layers import (chunked_xent, dtype_of, embed, init_embed, init_mlp,
+                     mlp, rmsnorm, unembed_logits, zeros)
 
 _ENCDEC = ("encoder-decoder stacks land in a later slice of the port "
            "(ROADMAP.md S2)")
@@ -168,11 +179,12 @@ def param_count(cfg: ModelConfig) -> int:
 
 
 # --------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill)
 # --------------------------------------------------------------------------
-def _apply_layer(cfg: ModelConfig, layer: Layer, h, positions,
-                 collect_cache: bool):
-    """One layer over the whole prompt; returns (h, cache entry | None)."""
+def _layer(cfg: ModelConfig, layer: Layer, h, positions, collect_cache: bool,
+           train: bool):
+    """One layer over the whole sequence; returns (h, the MoE aux loss (0.0
+    outside training or a MoE FFN), cache entry | None)."""
     x_in = rmsnorm(h, layer.norm1, cfg.norm_eps)
     if layer.mixer == "attention":
         y, (k, v) = attn.self_attention(cfg.attention, layer.attn, x_in,
@@ -189,27 +201,88 @@ def _apply_layer(cfg: ModelConfig, layer: Layer, h, positions,
         cache = {"att_shift": shift, "wkv": S}
     h = h + y
     hn = rmsnorm(h, layer.norm2, cfg.norm_eps)
+    aux = 0.0
     if layer.ffn == "dense":
         h = h + mlp(layer.mlp, hn, cfg.act)
     elif layer.ffn == "moe":
-        h = h + moe_mod.moe_dense(cfg.moe, layer.moe, hn, cfg.act)
+        if train:
+            y, aux = moe_mod.moe_dense(cfg.moe, layer.moe, hn, cfg.act,
+                                       with_aux=True)
+        else:
+            y = moe_mod.moe_dense(cfg.moe, layer.moe, hn, cfg.act)
+        h = h + y
     else:
         y, cache["ffn_shift"] = rwkv.rwkv_ffn_forward(layer.rwkvffn, hn,
                                                       return_state=True)
         h = h + y
-    return h, (cache if collect_cache else None)
+    return h, aux, (cache if collect_cache else None)
+
+
+def _apply_layer(cfg: ModelConfig, layer: Layer, h, positions,
+                 collect_cache: bool):
+    """One layer over the whole prompt; returns (h, cache entry | None)."""
+    h, _, cache = _layer(cfg, layer, h, positions, collect_cache, False)
+    return h, cache
+
+
+def _train_layer(cfg: ModelConfig, layer: Layer, h, positions):
+    """One layer in training; returns (h, its MoE aux loss)."""
+    h, aux, _ = _layer(cfg, layer, h, positions, False, True)
+    return h, aux
 
 
 def forward_hidden(cfg: ModelConfig, model: Transformer, x, positions,
-                   collect_cache: bool = False):
-    """x: (B, S, D) embeddings -> (h, caches | None)."""
-    caches = []
+                   collect_cache: bool = False, mode: str = "prefill"):
+    """x: (B, S, D) embeddings -> (h, caches | None), or in ``mode="train"``
+    (h, the MoE aux losses summed over layers), each layer under activation
+    checkpointing where ``cfg.remat`` is not ``"none"``."""
     h = x
+    if mode == "train":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in model.layers:
+            if cfg.remat != "none":
+                h, a = checkpoint(_train_layer, cfg, layer, h, positions,
+                                  use_reentrant=False)
+            else:
+                h, a = _train_layer(cfg, layer, h, positions)
+            aux = aux + a
+        return rmsnorm(h, model.final_norm, cfg.norm_eps), aux
+    caches = []
     for layer in model.layers:
         h, c = _apply_layer(cfg, layer, h, positions, collect_cache)
         caches.append(c)
     h = rmsnorm(h, model.final_norm, cfg.norm_eps)
     return h, (caches if collect_cache else None)
+
+
+def embed_inputs(cfg: ModelConfig, model: Transformer, batch):
+    """The input embeddings of ``batch``: the frames (cast to the compute
+    dtype) for a frames model, else the tokens' embeddings."""
+    if cfg.input_kind == "frames":
+        return batch["frames"].to(dtype_of(cfg.dtype))
+    return embed(model.embed, batch["tokens"], cfg.embed_scale, cfg.d_model)
+
+
+def moe_layer_count(cfg: ModelConfig) -> int:
+    return sum(1 for l in range(cfg.num_layers)
+               if layer_spec(cfg, l).ffn == "moe")
+
+
+def loss_fn(cfg: ModelConfig, model: Transformer, batch):
+    """Next-token CE (+ the MoE aux loss).  batch: tokens (B, S), labels
+    (B, S), optional mask (B, S).  Returns (total, {"ce", "aux"}): aux is
+    the mean over the MoE layers, weighted into the total by
+    ``router_aux_coef``."""
+    check_supported(cfg)
+    x = embed_inputs(cfg, model, batch)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    h, aux = forward_hidden(cfg, model, x, positions, mode="train")
+    loss = chunked_xent(cfg, model.embed, h, batch["labels"],
+                        batch.get("mask"))
+    aux = aux / max(1, moe_layer_count(cfg))
+    coef = cfg.moe.router_aux_coef if cfg.moe else 0.0
+    return loss + coef * aux, {"ce": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, model: Transformer, tokens):
