@@ -36,11 +36,14 @@ LM1. ``flash_attention_vs_plain``  ``flash_attention`` against
    {16, 64, 80, 128, 256} x Sq = Sk {1, 77, 1024, 2048} x GQA group {1, 4,
    8} on 8 query heads x causal x window {0, 64} x softcap {0, 30}, plus
    300 queries against 1024 keys, plus jamba's layer (64 query heads on 8
-   KV heads, hd 128, causal) at S {1, 77, 1024, 2048}: 1016 cases,
-   max|d| <= 2e-5 (f32) / the smaller of 2e-2 and two bf16 ulps of the
-   plain output + 2e-5 (bf16); hd 12 and 264 refused.  Traced:
-   the 220 bf16 cases with hd 64 or 128 must count in ``tc_launches`` and
-   run ``flash_attention_kernel_sm90``, the other 796 the SIMT kernel.
+   KV heads, hd 128, causal) at S {1, 77, 1024, 2048}, plus whisper's (hd
+   64, 20 heads on 20 KV heads): the encoder layer (non-causal, Sq = Sk =
+   1500) at batch 8 in bf16 and batch 1 in f32, the decoder's prefill
+   (causal, S 4) at batch 8 in bf16: 1019 cases, max|d| <= 2e-5 (f32) /
+   the smaller of 2e-2 and two bf16 ulps of the plain output + 2e-5
+   (bf16); hd 12 and 264 refused.  Traced: the 222 bf16 cases with hd 64
+   or 128 must count in ``tc_launches`` and run
+   ``flash_attention_kernel_sm90``, the other 797 the SIMT kernel.
 LM2. ``rmsnorm_vs_plain``  ``rmsnorm`` against ``rmsnorm_ref`` on rows x D
    {1x64, 7x80, 4x2048, 4096x2048, 3x8192}, f32 (rtol 2e-6) and bf16
    (one bf16 ulp), w in x's dtype; D=70, a w in f32 under bf16 x and a
@@ -101,9 +104,28 @@ LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
    K8 15 times (two a layer, the final norm, one inside each mamba mixer),
    every decode step K8 15 times and K7 never; the peak bytes of
    ``init_params`` and of the drain.
+LM12a. ``whisper_lm_vs_plain``  whisper-large-v3 at full width cut to 2
+   encoder and 2 decoder layers, f32, one seeded set of weights: one clip
+   of 1500 seeded frames and a 4-token prompt, prefill and 8 decode steps
+   on the card and on the CPU, the card fed the CPU's greedy tokens:
+   logits max|d| <= 1e-3, greedy tokens equal wherever the CPU's top-2
+   margin exceeds 1e-2; K5 launched 4 times in the prefill (each encoder
+   and decoder layer; SIMT in f32) and never in decode.
+LM12b. ``serve_whisper_at_size``  whisper-large-v3 at full width and depth
+   (32 + 32 layers, 1 535 342 080 bf16 parameters from seed 0): 8 clips of
+   1500 seeded frames, a 4-token prompt each, one prefill of the batch,
+   its self-attention cache copied into ``init_cache(8, 448)`` and its
+   cross-attention k / v carried over, then 127 greedy decode steps (128
+   new tokens each): seconds, generated tokens/s, the prefill's ms, the
+   encoder's ms apart, the median decode-step ms, K5 launches, peak
+   bytes, the device's idle share over a pass of the prefill and 15
+   decode steps (its device busy seconds traced, over its untraced wall);
+   every token in [0, V), the prefill launching K5 64 times, all on the
+   tensor cores, decode none.
 LM12. ``train_grad_vs_plain``  each of K5 (f32 on the SIMT kernel; bf16
    hd 64 / 128 on the tensor cores; causal, windowed, softcapped; GQA, MQA,
-   MHA; S up to 1024, two tiles of the backward), K6 (n 64 / 16, T 64-256,
+   MHA; S up to 1024, two tiles of the backward; whisper's non-causal
+   encoder layer, B*H 20, S 1500), K6 (n 64 / 16, T 64-256,
    with and without s0), K7 (T 64-256, N 16 / 4) and K8 (f32 and bf16)
    through its autograd function on the card: the forward launched the
    kernel once and lies within the kernel's forward tolerance of the plain
@@ -113,10 +135,12 @@ LM12. ``train_grad_vs_plain``  each of K5 (f32 on the SIMT kernel; bf16
 LM13. ``train_lm_vs_plain``  one AdamW train step on the card against the
    same step on the CPU, from the same weights and a 2 x 256 batch:
    llama3.2-1b at full width cut to 2 layers (f32, remat full), tiny
-   rwkv6-1.6b (K6, its time-mix made live) and tiny jamba (K7, the MoE
-   aux loss): loss within 1e-4 relative, grad_norm within 1e-3, every
-   gradient leaf within 1e-3 * max|CPU's|; the card's step launching K5,
-   K6, K7 once per attention, rwkv6, mamba layer and K8 once per norm, each
+   rwkv6-1.6b (K6, its time-mix made live), tiny jamba (K7, the MoE
+   aux loss) and tiny whisper (K5 in both stacks, frames in the batch):
+   loss within 1e-4 relative, grad_norm within 1e-3, every gradient leaf
+   within 1e-3 * max|CPU's|; the card's step launching K5, K6, K7 once
+   per attention (whisper: per layer of both stacks), rwkv6, mamba layer
+   and K8 once per norm (whisper's LayerNorms are tensor code), each
    twice under remat (the final norm once).
 LM14. ``train_at_size``  llama3.2-1b at full width and depth (1 235 814 400
    parameters, bf16, remat full, logit_chunk 512, AdamW at the reference's
@@ -160,9 +184,10 @@ LM15. ``train_resume``  ``examples/train_resume.py``'s flow through the
    on 10**6 seeded rows (the simulator's domain plus negative ``sws``,
    ``cnt`` and ``k + 1``, where floor division differs from C's), exactly.
 7. ``fig3``    ``simulate_batch`` on the 320-config Fig. 3 grid, auto
-   horizon for target_cs=18 with early exit, ``backend="kernel"`` against
-   ``backend="ref"`` on the card; equal under the same rule;
-   ``validate()`` passes.
+   horizon for target_cs=18 with early exit, through the kernel, timed;
+   then ``backend="kernel"`` against ``backend="ref"`` on the card at
+   target_cs=4 (the eager plain version's time follows the horizon):
+   every result field equal; ``validate()`` passes.
 8. ``scan_equals_blocked``  the scan rollout, this slice's path:
    ``simulate_batch(rollout="scan")`` on the Fig. 3 grid at the horizon
    ``fig3`` plans, and on the open matrix as an open-loop batch, through
@@ -226,6 +251,17 @@ LM15. ``train_resume``  ``examples/train_resume.py``'s flow through the
    mutable at 250 requests (fails unless C6 holds), then
    ``sched_bench.xdes_sweep(20)`` through K1.  Each part's seconds and
    launches, set to 0 just before it.
+13a. ``bench_stream_smoke``  ``repro_torch.bench.stream_smoke.main([])``
+   at its defaults (20 000 configs, a 16 MiB budget) through K1: fails
+   unless it streamed, its plan fits the budget, host RSS grew under 512
+   MB and the device's allocated bytes under the budget.
+13b. ``bench_run_quick``  ``repro_torch.bench.run.main(["--quick"])``
+   from an empty working directory (the sweep, the oracle grid, the five
+   diagrams, ``perf_bench --quick`` with both backends): each step's
+   seconds, the summary rows and perf_bench's cells; fails unless every
+   Fig. 3 claim holds, every ``perf.*`` speedup is finite and positive,
+   every file lies under ``reports/torch/`` and ``BENCH_xdes.json`` is
+   untouched.
 14. ``kernels`` the contract line: per kernel and variant, the time per
    launch at its largest main-path shape (CUDA events, median, with the
    card kept busy while the host enqueues the launch), the plain
@@ -240,7 +276,9 @@ LM15. ``train_resume``  ``examples/train_resume.py``'s flow through the
    entries also carry ``diagrams_launches`` and
    ``paper_figures_launches``, its launches in those phases); ``flash_attention`` at
    one prefill layer of llama3.2-1b and of jamba (hd 64 and 128, both on
-   the tensor cores, each with its own bound and SDPA time) and
+   the tensor cores, each with its own bound and SDPA time) and at one
+   encoder layer of whisper as it serves (non-causal, B*H 160, S 1500,
+   with the launches of ``serve_whisper_at_size``) and
    ``rmsnorm`` at a prefill and a decode shape, with the PyTorch call that
    computes the same function (``library_ms``: ``scaled_dot_product_attention``, ``rms_norm``) and
    the launches of ``serve_at_size``; ``rwkv6_scan`` at one prefill layer
@@ -812,6 +850,10 @@ def phase_scan_equals_blocked():
 # phases 7-12
 # --------------------------------------------------------------------------
 def phase_fig3():
+    """The 320-config Fig. 3 grid through the kernel at FIG3_TARGET_CS,
+    timed; then kernel against plain version, bit for bit over every
+    result field, at FIG3_COMPARE_CS (the eager plain version's time
+    follows the horizon)."""
     cfgs = catalog.lock_fig3_grid()
     K.lock_sim_block.launches = 0
     t0 = time.perf_counter()
@@ -820,22 +862,28 @@ def phase_fig3():
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
     launches = K.lock_sim_block.launches
-    t0 = time.perf_counter()
-    plain = xdes.simulate_batch(cfgs, target_cs=FIG3_TARGET_CS,
-                                backend="ref")
-    torch.cuda.synchronize()
-    t_plain = time.perf_counter() - t0
-    compare_results(kern, plain, "fig3")
     kern.validate("fig3 grid")
     if launches <= 0:
         fail("fig3: simulate_batch(backend='kernel') launched no kernel")
     if not (kern.completed >= FIG3_TARGET_CS).all():
         fail("fig3: early exit left a config below target_cs")
+    small = xdes.simulate_batch(cfgs, target_cs=FIG3_COMPARE_CS,
+                                backend="kernel")
+    t0 = time.perf_counter()
+    plain = xdes.simulate_batch(cfgs, target_cs=FIG3_COMPARE_CS,
+                                backend="ref")
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    compare_results(small, plain, "fig3")
+    small.validate("fig3 grid")
     emit({"phase": "fig3", "configs": len(cfgs),
           "target_cs": FIG3_TARGET_CS, "n_steps": kern.n_steps,
           "steps_run": int(kern.steps_run[0]), "launches": launches,
-          "kernel_seconds": t_kernel, "plain_seconds": t_plain,
-          "equal": True})
+          "kernel_seconds": t_kernel,
+          "compare_target_cs": FIG3_COMPARE_CS,
+          "compare_n_steps": small.n_steps,
+          "compare_steps_run": int(small.steps_run[0]),
+          "plain_seconds": t_plain, "equal": True})
 
 
 def timed_sweep(cfgs, **kw):
@@ -1859,6 +1907,28 @@ JAMBA_SCAN_FLOOR = 1e-6
 #: Router-probability gap under which the card and the CPU may route a
 #: token to different experts in f32.
 MOE_MARGIN = 1e-5
+#: whisper-large-v3: whisper_lm_vs_plain cuts both stacks to WHISPER_CUT
+#: layers; serve_whisper_at_size serves WHISPER_BATCH clips of 1500 frames,
+#: a WHISPER_PROMPT-token prompt each (the start-of-transcript sequence's
+#: length), WHISPER_NEW greedy tokens, in WHISPER_MAX_SEQ slots (the
+#: decoder's context).
+WHISPER = "whisper-large-v3"
+WHISPER_CUT = 2
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 8, 4, 128
+WHISPER_MAX_SEQ = 448
+#: The traced pass of serve_whisper_at_size: the prefill and 15 decode
+#: steps (tracing all 127 steps' 2 400 operations each took 92 s).
+WHISPER_TRACE_NEW = 16
+#: K5 at whisper's layers (hd 64, 20 heads on 20 KV heads): the encoder's
+#: self-attention over 1500 frames (non-causal, batch 8 in bf16 on the
+#: tensor cores, batch 1 in f32 on the SIMT kernel) and the decoder's
+#: prefill self-attention over the 4-token prompt (causal, batch 8):
+#: (dtype, hd, Sq, Sk, BH, group, causal, window, softcap).
+WHISPER_FLASH_CASES = (
+    (torch.bfloat16, 64, 1500, 1500, 160, 1, False, 0, 0.0),
+    (torch.bfloat16, 64, 4, 4, 160, 1, True, 0, 0.0),
+    (torch.float32, 64, 1500, 1500, 20, 1, False, 0, 0.0),
+)
 
 
 def flash_cases():
@@ -1866,7 +1936,8 @@ def flash_cases():
     dtype x hd x Sq = Sk x group x causal x window x softcap on 8 query
     heads, then Sq != Sk (300 queries against 1024 keys) over the mask
     options, then jamba's attention layer as it serves (64 query heads on
-    8 KV heads, hd 128, causal, no window, no softcap)."""
+    8 KV heads, hd 128, causal, no window, no softcap), then whisper's
+    (WHISPER_FLASH_CASES)."""
     masks = [(c, w, s) for c in (True, False) for w in (0, 64)
              for s in (0.0, 30.0)]
     for dtype in FLASH_LIMIT:
@@ -1880,6 +1951,7 @@ def flash_cases():
                 yield (dtype, 64, 300, 1024, 8, group, *m)
         for S in FLASH_SEQS:
             yield (dtype, 128, S, S, 64, 8, True, 0, 0.0)
+    yield from WHISPER_FLASH_CASES
 
 
 def phase_flash_attention_vs_plain():
@@ -1892,11 +1964,12 @@ def phase_flash_attention_vs_plain():
     gen = torch.Generator(device=DEV).manual_seed(0)
     worst = {str(d).split(".")[1]: 0.0 for d in FLASH_LIMIT}
     excess = dict(worst)
+    whisper = []
     n = n_tc = 0
     before, tc_before = LMA.launches, LMA.tc_launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for dtype, hd, Sq, Sk, BH, group, causal, window, softcap in \
-                flash_cases():
+        for case in flash_cases():
+            dtype, hd, Sq, Sk, BH, group, causal, window, softcap = case
             q = torch.randn((BH, Sq, hd), generator=gen,
                             device=DEV).to(dtype)
             k, v = (torch.randn((BH // group, Sk, hd), generator=gen,
@@ -1919,6 +1992,10 @@ def phase_flash_attention_vs_plain():
             name = str(dtype).split(".")[1]
             worst[name] = max(worst[name], err)
             excess[name] = max(excess[name], over)
+            if case in WHISPER_FLASH_CASES:
+                whisper.append({"dtype": name, "BH": BH, "S": Sq,
+                                "causal": causal, "max_abs_err": err,
+                                "err_over_limit": over})
             n += 1
             n_tc += tensor_core_path(dtype, hd)
         torch.cuda.synchronize()
@@ -1950,9 +2027,9 @@ def phase_flash_attention_vs_plain():
           "max_abs_err": worst, "limit": {str(d).split(".")[1]: l
                                           for d, l in FLASH_LIMIT.items()},
           "bf16_limit": "min(2e-2, 2 bf16 ulps of the plain output + 2e-5)",
-          "max_err_over_limit": excess,
+          "max_err_over_limit": excess, "whisper_cases": whisper,
           "refused_hd": refused, "seconds": time.perf_counter() - t0})
-    return max(worst.values())
+    return max(worst.values()), whisper
 
 
 def phase_rmsnorm_vs_plain():
@@ -2551,8 +2628,9 @@ def phase_mamba_scan_vs_plain():
 def card_copy(cfg, cpu_model):
     """The card's copy of ``cpu_model``, allocated on the card from the
     shapes and filled tensor by tensor: host memory holds the model once."""
-    from repro_torch.models import transformer
-    model = transformer.init_params(cfg, None, "meta").to_empty(device=DEV)
+    from repro_torch import models
+    model = models.family(cfg).init_params(cfg, None, "meta").to_empty(
+        device=DEV)
     src = dict(cpu_model.named_parameters())
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -2672,12 +2750,350 @@ def phase_moe_lm_vs_plain():
 
 
 # --------------------------------------------------------------------------
+# whisper-large-v3: the encoder-decoder family
+# --------------------------------------------------------------------------
+def whisper_frames(cfg, B, seed):
+    """``B`` clips of ``cfg.encoder_seq`` seeded frame embeddings (f32)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen)
+
+
+def widen_cache(cfg, cache1, max_seq, device):
+    """The prefill cache in ``init_cache(B, max_seq)``: its self-attention
+    k / v copied into the first slots, its cross-attention k / v carried
+    over (the empty ones dropped)."""
+    from repro_torch import models
+    big = models.init_cache(cfg, cache1["len"].shape[0], max_seq,
+                            device=device)
+    S = cache1["layers"][0]["k"].shape[2]
+    for b, c in zip(big["layers"], cache1["layers"]):
+        b["k"][:, :, :S] = c["k"]
+        b["v"][:, :, :S] = c["v"]
+        b["enc_k"], b["enc_v"] = c["enc_k"], c["enc_v"]
+    big["len"] = cache1["len"].clone()
+    return big
+
+
+def whisper_run(cfg, model, device, frames, prompt, n_steps, forced=None):
+    """Prefill one clip and ``prompt``, then ``n_steps`` decode steps fed
+    ``forced`` or the greedy token: (the logits of the prefill and of every
+    step, f32 on the host; the tokens fed)."""
+    from repro_torch import models
+    toks = torch.tensor([prompt], device=device)
+    logits, cache1 = models.prefill(cfg, model, {
+        "tokens": toks, "frames": frames.to(device)})
+    cache = widen_cache(cfg, cache1, len(prompt) + n_steps, device)
+    del cache1
+    out, fed = [logits[0].float().cpu()], []
+    for i in range(n_steps):
+        tok = int(out[-1].argmax()) if forced is None else forced[i]
+        fed.append(tok)
+        logits, cache = models.decode_step(
+            cfg, model, cache, torch.tensor([[tok]], device=device))
+        out.append(logits[0].float().cpu())
+    return out, fed
+
+
+def phase_whisper_lm_vs_plain():
+    """whisper-large-v3 at full width cut to WHISPER_CUT encoder and
+    decoder layers, f32, one seeded set of parameters: one clip of 1500
+    seeded frames and a WHISPER_PROMPT-token prompt, prefill and
+    LM_VS_PLAIN_STEPS decode steps on the card (the encoder's and the
+    decoder's prefill self-attention through K5, on the SIMT kernel in
+    f32) and on the CPU (plain versions), the card fed the CPU's greedy
+    tokens: logits within 1e-3, greedy tokens equal where the CPU's top-2
+    margin exceeds 1e-2; K5 launched once per layer of both stacks in the
+    prefill and never in decode."""
+    from repro_torch import models
+    from repro_torch.configs import base as CB
+    cfg = CB.get_config(WHISPER).replace(
+        encoder_layers=WHISPER_CUT, num_layers=WHISPER_CUT,
+        dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    cpu_model = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    gpu_model = card_copy(cfg, cpu_model)
+    frames = whisper_frames(cfg, 1, 0)
+    rng = np.random.default_rng(0)
+    prompt = [int(t) for t in rng.integers(2, cfg.vocab_size - 1,
+                                           WHISPER_PROMPT)]
+    cpu, forced = whisper_run(cfg, cpu_model, "cpu", frames, prompt,
+                              LM_VS_PLAIN_STEPS)
+    k5, k5_tc, k8 = LMA.launches, LMA.tc_launches, LMN.launches
+    gpu, _ = whisper_run(cfg, gpu_model, DEV, frames, prompt,
+                         LM_VS_PLAIN_STEPS, forced)
+    k5, k5_tc, k8 = (LMA.launches - k5, LMA.tc_launches - k5_tc,
+                     LMN.launches - k8)
+    if k5 != 2 * WHISPER_CUT or k5_tc != 0 or k8 != 0:
+        fail(f"whisper_lm_vs_plain: {k5} K5 ({k5_tc} tensor-core) / {k8} "
+             f"K8 launches on the card")
+    worst, clear = 0.0, 0
+    for i, (c, g) in enumerate(zip(cpu, gpu)):
+        if not torch.isfinite(g).all():
+            fail(f"whisper_lm_vs_plain: non-finite logits at step {i}")
+        worst = max(worst, float((c - g).abs().max()))
+        top2 = torch.topk(c, 2).values
+        if float(top2[0] - top2[1]) > 1e-2:
+            clear += 1
+            if int(g.argmax()) != int(c.argmax()):
+                fail(f"whisper_lm_vs_plain: greedy token differs at step "
+                     f"{i} (CPU margin {float(top2[0] - top2[1])})")
+    if not worst <= 1e-3:
+        fail(f"whisper_lm_vs_plain: logits max|d| {worst} over 1e-3")
+    emit({"phase": "whisper_lm_vs_plain", "arch": WHISPER,
+          "encoder_layers": cfg.encoder_layers, "decoder_layers":
+          cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "frames": cfg.encoder_seq, "dtype": "float32",
+          "params": models.param_count(cfg), "prompt": WHISPER_PROMPT,
+          "decode_steps": LM_VS_PLAIN_STEPS, "logits_max_abs_err": worst,
+          "limit": 1e-3, "steps_compared": len(cpu),
+          "steps_with_clear_margin": clear, "greedy_equal": clear,
+          "k5_launches": k5, "k5_tc_launches": k5_tc, "k8_launches": k8,
+          "seconds": time.perf_counter() - t0})
+
+
+def whisper_serve(cfg, model, frames, prompts, max_seq, new_tokens):
+    """One ``models.prefill`` of the batch, its cache widened to
+    ``max_seq`` slots, then ``new_tokens`` greedy ``decode_step``s, each
+    token read back: (the tokens of every step (B, new_tokens), the
+    prefill's seconds, each step's seconds), on the host clock ending in a
+    read-back."""
+    from repro_torch import models
+    toks = torch.tensor(prompts, device=DEV)
+    t0 = time.perf_counter()
+    logits, cache1 = models.prefill(cfg, model, {"tokens": toks,
+                                                 "frames": frames})
+    cache = widen_cache(cfg, cache1, max_seq, DEV)
+    del cache1
+    tok = logits.argmax(-1)[:, None]
+    out = [tok.cpu()]
+    prefill_s = time.perf_counter() - t0
+    steps = []
+    for _ in range(new_tokens - 1):
+        t1 = time.perf_counter()
+        logits, cache = models.decode_step(cfg, model, cache, tok)
+        tok = logits.argmax(-1)[:, None]
+        out.append(tok.cpu())
+        steps.append(time.perf_counter() - t1)
+    return torch.cat(out, dim=1), prefill_s, steps
+
+
+def phase_serve_whisper_at_size():
+    """whisper-large-v3 at full width and depth (32 + 32 layers, 1 535 342
+    080 bf16 parameters from seed 0): WHISPER_BATCH clips of 1500 seeded
+    frames, a WHISPER_PROMPT-token prompt each, WHISPER_NEW greedy tokens,
+    max_seq WHISPER_MAX_SEQ: one prefill of the batch, then decode steps.
+    Every token in [0, V); the prefill launches K5 once per layer of both
+    stacks (64), all on the tensor cores (bf16, hd 64), decode never."""
+    from repro_torch import models
+    from repro_torch.configs import base as CB
+    from repro_torch.models import encdec
+    cfg = CB.get_config(WHISPER)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    frames = whisper_frames(cfg, WHISPER_BATCH, 1).to(DEV, torch.bfloat16)
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(2, cfg.vocab_size - 1,
+                           (WHISPER_BATCH, WHISPER_PROMPT)).tolist()
+    with torch.no_grad():
+        whisper_serve(cfg, model, frames, prompts, WHISPER_MAX_SEQ, 3)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, counted
+        LMA.launches = LMA.tc_launches = LMN.launches = 0
+        n5 = {}
+        real_prefill = models.prefill
+
+        def prefill(*a, **k):
+            res = real_prefill(*a, **k)
+            n5["prefill"], n5["prefill_tc"] = LMA.launches, LMA.tc_launches
+            return res
+
+        models.prefill = prefill
+        try:
+            t1 = time.perf_counter()
+            toks, prefill_s, steps = whisper_serve(
+                cfg, model, frames, prompts, WHISPER_MAX_SEQ, WHISPER_NEW)
+            seconds = time.perf_counter() - t1
+        finally:
+            models.prefill = real_prefill
+        k5, k5_tc, k8 = LMA.launches, LMA.tc_launches, LMN.launches
+        peak = torch.cuda.max_memory_allocated()
+        n_layers = cfg.encoder_layers + cfg.num_layers
+        if (n5["prefill"] != n_layers or n5["prefill_tc"] != n_layers
+                or k5 != n_layers or k5_tc != n_layers or k8 != 0):
+            fail(f"serve_whisper_at_size: {n5} K5 in the prefill, {k5} "
+                 f"({k5_tc} tensor-core) in all, {k8} K8")
+        if toks.shape != (WHISPER_BATCH, WHISPER_NEW) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"serve_whisper_at_size: tokens {toks.shape} out of "
+                 f"[0, {cfg.vocab_size})")
+        enc_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            encdec.encode(cfg, model, frames)
+            torch.cuda.synchronize()
+            enc_ms.append((time.perf_counter() - t2) * 1e3)
+        short = lambda: whisper_serve(cfg, model, frames, prompts,
+                                      WHISPER_MAX_SEQ, WHISPER_TRACE_NEW)
+        torch.cuda.synchronize()
+        t_short = time.perf_counter()
+        short()
+        short_s = time.perf_counter() - t_short
+        t_trace = time.perf_counter()
+        res, busy, k5_s = profiled(short, "flash_attention_kernel")
+        trace_s = time.perf_counter() - t_trace
+    traced = busy > 0.0
+    tokens = toks.numel()
+    emit({"phase": "serve_whisper_at_size", "arch": cfg.name,
+          "encoder_layers": cfg.encoder_layers,
+          "decoder_layers": cfg.num_layers, "dtype": cfg.dtype,
+          "params": sum(p.numel() for p in model.parameters()),
+          "clips": WHISPER_BATCH, "frames": cfg.encoder_seq,
+          "prompt": WHISPER_PROMPT, "new_tokens": WHISPER_NEW,
+          "max_seq": WHISPER_MAX_SEQ, "generated_tokens": tokens,
+          "seconds": seconds, "generated_tokens_per_s": tokens / seconds,
+          "prefill_ms": prefill_s * 1e3,
+          "encoder_ms_median": float(np.median(enc_ms)),
+          "median_decode_step_ms": float(np.median(steps)) * 1e3,
+          "max_decode_step_ms": float(np.max(steps)) * 1e3,
+          "decode_steps": len(steps),
+          "k5_launches": k5, "k5_tc_launches": k5_tc,
+          "k5_launches_prefill": n5["prefill"], "k8_launches": k8,
+          "peak_bytes": peak, "build_seconds": build_s,
+          "traced_new_tokens": WHISPER_TRACE_NEW,
+          "traced_pass_seconds": short_s,
+          "trace_and_read_seconds": trace_s,
+          "device_busy_seconds": busy if traced else None,
+          "k5_device_seconds": k5_s if traced else None,
+          "device_idle_share": 1.0 - busy / short_s if traced else None,
+          "phase_seconds": time.perf_counter() - t0})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"k5": k5, "k5_tc": k5_tc}
+
+
+# --------------------------------------------------------------------------
+# The rest of benchmarks/ on the port: stream_smoke and run --quick
+# --------------------------------------------------------------------------
+def phase_bench_stream_smoke():
+    """``repro_torch.bench.stream_smoke.main([])`` at its defaults (20 000
+    configs, 16 MiB) on the card: streamed, the plan within the budget,
+    host RSS growth under its ceiling, device growth within the budget."""
+    from repro_torch.bench import stream_smoke
+    t0 = time.perf_counter()
+    K.lock_sim_block.launches = 0
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = stream_smoke.main([])
+    except SystemExit as e:
+        fail(f"bench_stream_smoke: exit {e.code}: {buf.getvalue()}")
+    emit({"phase": "bench_stream_smoke", **out,
+          "launches": K.lock_sim_block.launches,
+          "line": buf.getvalue().splitlines()[0],
+          "seconds": time.perf_counter() - t0})
+
+
+#: The modules ``run --quick`` calls, each step's ``main`` timed.
+RUN_QUICK_STEPS = ("sweep", "oracle_ablation", "discipline_diagram",
+                   "workload_diagram", "arrival_diagram", "fault_diagram",
+                   "park_diagram", "perf_bench")
+
+
+def phase_bench_run_quick():
+    """``repro_torch.bench.run.main(["--quick"])`` on the card from an
+    empty working directory: every step's seconds, the summary rows; every
+    ``sweep.fig3.*`` claim True, every ``perf.*`` speedup finite and
+    positive, every file written under ``reports/torch/``, and the JAX
+    package's ``BENCH_xdes.json`` untouched."""
+    from repro_torch.bench import run
+    bench = os.path.join(HERE, "BENCH_xdes.json")
+    stamp = os.stat(bench).st_mtime_ns if os.path.exists(bench) else None
+    mods = {n: importlib.import_module(f"repro_torch.bench.{n}")
+            for n in RUN_QUICK_STEPS}
+    real = {n: m.main for n, m in mods.items()}
+    step_s, results = {}, {}
+
+    def timed(name):
+        def main(argv=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            results[name] = real[name](argv)
+            torch.cuda.synchronize()
+            step_s[name] = time.perf_counter() - t
+            return results[name]
+        return main
+
+    t0 = time.perf_counter()
+    K.lock_sim_block.launches = K.lock_sim_block.open_launches = 0
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        for n, m in mods.items():
+            m.main = timed(n)
+        try:
+            with contextlib.redirect_stdout(buf):
+                rows = run.main(["--quick"])
+        finally:
+            os.chdir(cwd)
+            for n, m in mods.items():
+                m.main = real[n]
+        written = sorted(os.path.relpath(os.path.join(d, f), tmp)
+                         for d, _, fs in os.walk(tmp) for f in fs)
+    seconds = time.perf_counter() - t0
+    rows = dict(rows)
+    outside = [w for w in written if not w.startswith("reports/torch/")]
+    # the claims C2-C4 (the row beside them is the spin-CPU ratio)
+    claims = {k: v for k, v in rows.items()
+              if k.startswith("sweep.fig3.C")}
+    perf = {k: v for k, v in rows.items() if k.startswith("perf.")}
+    if outside or not written:
+        fail(f"bench_run_quick: wrote {outside or 'nothing'} outside "
+             f"reports/torch/")
+    if len(claims) != 3 or not all(v is True for v in claims.values()):
+        fail(f"bench_run_quick: Fig. 3 claims {claims}")
+    if not perf or not all(np.isfinite(v) and v > 0 for v in perf.values()):
+        fail(f"bench_run_quick: perf speedups {perf}")
+    if stamp is not None and os.stat(bench).st_mtime_ns != stamp:
+        fail("bench_run_quick: BENCH_xdes.json was written")
+    pb = results["perf_bench"]
+    emit({"phase": "bench_run_quick", "seconds": seconds,
+          "step_seconds": step_s,
+          "launches": K.lock_sim_block.launches,
+          "open_launches": K.lock_sim_block.open_launches,
+          "files": len(written), "summary": rows,
+          "perf_env": pb["meta"]["device_kind"],
+          "perf_dispatch_wall_s": {k: c["wall_s"]
+                                   for k, c in pb["dispatch"].items()},
+          "perf_dispatch_cfg_steps_per_s": {
+              k: c["cfg_steps_per_s"] for k, c in pb["dispatch"].items()},
+          "perf_sweep_wall_s": {k: c["wall_s"]
+                                for k, c in pb["sweep"].items()},
+          "perf_open_loop": {k: (c["wall_s"] if isinstance(c, dict) else c)
+                             for k, c in pb["open_loop"].items()},
+          "perf_encode": pb["encode"], "perf_stream": pb["stream"]})
+
+
+# --------------------------------------------------------------------------
 # Training: the kernels' gradients, one train step card vs CPU, llama3.2-1b
 # trained at size through launch.train, and its resume
 # --------------------------------------------------------------------------
 #: K5's gradient cases: (dtype, BH, BKV, S, hd, causal, window, softcap).
 #: f32 on the SIMT kernel; bf16 hd 64 / 128 on the tensor cores; GQA,
-#: MQA and MHA; S 1024 takes the backward's two query tiles.
+#: MQA and MHA; S 1024 takes the backward's two query tiles; the last is
+#: whisper's encoder layer (non-causal, 20 heads on 20, S 1500).
 FLASH_GRAD_CASES = (
     (torch.float32, 8, 2, 256, 64, True, 0, 0.0),
     (torch.float32, 8, 8, 200, 64, True, 64, 0.0),
@@ -2686,6 +3102,7 @@ FLASH_GRAD_CASES = (
     (torch.bfloat16, 8, 2, 300, 128, True, 64, 0.0),
     (torch.bfloat16, 8, 8, 256, 64, True, 0, 30.0),
     (torch.bfloat16, 8, 1, 1024, 64, True, 0, 0.0),
+    (torch.bfloat16, 20, 20, 1500, 64, False, 0, 0.0),
 )
 #: K6's: (n, BH, T, with s0); K7's: (B, T, d, N, dt range); K8's: (rows, D).
 RWKV6_GRAD_CASES = ((64, 8, 64, True), (64, 4, 256, False),
@@ -2830,11 +3247,12 @@ def train_step_pair(name, cfg, cpu_model):
     TRAIN_LEAF_LIMIT * max|CPU's|; the card's step launched K5, K6, K7
     once per attention, rwkv6, mamba layer and K8 k8_per_forward(cfg)
     times (remat recomputes each layer's: twice as many)."""
-    from repro_torch.models import convert, transformer
+    from repro_torch import models
+    from repro_torch.models import convert
     from repro_torch.train import TrainConfig, make_train_step, state_of
     from repro_torch.train.train_step import _grads_plain
     # carried across by the reference's leaves, as a checkpoint is
-    gpu_model = transformer.init_params(cfg, None, "meta").to_empty(
+    gpu_model = models.family(cfg).init_params(cfg, None, "meta").to_empty(
         device=DEV)
     convert.load_leaves(cfg, gpu_model, {
         k: convert.stack_leaf(v)
@@ -2843,12 +3261,15 @@ def train_step_pair(name, cfg, cpu_model):
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     tcfg = TrainConfig()
     step = make_train_step(cfg, tcfg)
     res = {}
     for side, model in (("cpu", cpu_model), ("card", gpu_model)):
         state = state_of(cfg, tcfg, model)
-        dev = model.final_norm.device
+        dev = models.device_of(model)
         on = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         _, _, grads = _grads_plain(cfg, model, on)
         grads = {k: g.float().cpu() for k, g in grads.items()}
@@ -2871,10 +3292,15 @@ def train_step_pair(name, cfg, cpu_model):
         fail(f"train_lm_vs_plain {name}: loss rel {loss_rel}, grad_norm rel "
              f"{norm_rel}, worst leaf {leaf}")
     per = 2 if cfg.remat != "none" else 1
-    mixers = mixer_counts(cfg)
-    want = {"k5": per * mixers["attention"], "k6": per * mixers["rwkv6"],
-            "k7": per * mixers["mamba"],
-            "k8": k8_per_forward(cfg) + (per - 1) * (k8_per_forward(cfg) - 1)}
+    if cfg.is_encoder_decoder:     # LayerNorm is tensor code: no K8
+        want = {"k5": per * (cfg.encoder_layers + cfg.num_layers), "k6": 0,
+                "k7": 0, "k8": 0}
+    else:
+        mixers = mixer_counts(cfg)
+        want = {"k5": per * mixers["attention"],
+                "k6": per * mixers["rwkv6"], "k7": per * mixers["mamba"],
+                "k8": (k8_per_forward(cfg)
+                       + (per - 1) * (k8_per_forward(cfg) - 1))}
     if launches != want:
         fail(f"train_lm_vs_plain {name}: launches {launches}, want {want}")
     return {"arch": name, "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -2889,8 +3315,8 @@ def train_step_pair(name, cfg, cpu_model):
 def phase_train_lm_vs_plain():
     """One AdamW train step card vs CPU (:func:`train_step_pair`) for
     llama3.2-1b at full width cut to 2 layers (f32, remat full: K5, K8),
-    tiny rwkv6-1.6b (K6; its time-mix made live) and tiny jamba (K7, K5
-    and the MoE aux loss)."""
+    tiny rwkv6-1.6b (K6; its time-mix made live), tiny jamba (K7, K5
+    and the MoE aux loss) and tiny whisper (K5 in both stacks)."""
     from repro_torch import models
     from repro_torch.configs import base as CB
     t0 = time.perf_counter()
@@ -2900,7 +3326,7 @@ def phase_train_lm_vs_plain():
     model = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     runs.append(train_step_pair("llama3.2-1b", cfg, model))
     del model
-    for arch in ("rwkv6-1.6b", JAMBA):
+    for arch in ("rwkv6-1.6b", JAMBA, WHISPER):
         cfg = catalog.tiny(CB.get_config(arch)).replace(**f32)
         model = models.init_params(cfg, torch.Generator().manual_seed(0),
                                    "cpu")
@@ -2908,7 +3334,7 @@ def phase_train_lm_vs_plain():
             with torch.no_grad():
                 live_time_mix(model, torch.Generator().manual_seed(1))
         runs.append(train_step_pair(f"tiny {arch}", cfg, model))
-    if not runs[-1]["aux_card"] > 0:
+    if not runs[2]["aux_card"] > 0:
         fail("train_lm_vs_plain: jamba's MoE aux loss is 0")
     gc.collect()
     emit({"phase": "train_lm_vs_plain", "runs": runs,
@@ -3132,28 +3558,29 @@ def mamba_entries(serve_launches, scan_err):
 
 
 def flash_entry(name, path, launches, tc_launches, flash_err, BH, BKV, S,
-                hd, gen):
-    """K5 at one causal bf16 prefill layer (Sq = Sk = S): device ms,
-    with-host ms, plain ms, SDPA's ms (``enable_gqa``, ``is_causal``), the
-    bound: QK^T and PV over the causal pairs at the dense bf16 tensor-core
-    peak against q, k, v and the output moved once."""
+                hd, gen, causal=True):
+    """K5 at one bf16 prefill layer (Sq = Sk = S): device ms, with-host
+    ms, plain ms, SDPA's ms (``enable_gqa``, ``is_causal``), the bound:
+    QK^T and PV over the (causal) pairs at the dense bf16 tensor-core peak
+    against q, k, v and the output moved once."""
     import torch.nn.functional as F
     bf = torch.bfloat16
     q = torch.randn((BH, S, hd), generator=gen, device=DEV).to(bf)
     k, v = (torch.randn((BKV, S, hd), generator=gen, device=DEV).to(bf)
             for _ in range(2))
-    kern = lambda: LMA(q, k, v, causal=True)
-    plain = lambda: ref.flash_attention_ref(q, k, v, causal=True)
+    kern = lambda: LMA(q, k, v, causal=causal)
+    plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal)
     q4, k4, v4 = q[None], k[None], v[None]
     library = lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True)
+        q4, k4, v4, is_causal=causal, enable_gqa=True)
     got, want = kern(), plain()
     err = float((got.float() - want.float()).abs().max())
     over = flash_excess(got, want)
     if not torch.isfinite(got).all() or not over <= 1.0:
         fail(f"flash_attention at {path}: max|d| {err}, {over} x its limit")
     lib_err = float((library()[0].float() - want.float()).abs().max())
-    ops = 4 * BH * hd * (S * (S + 1) // 2)     # QK^T and PV, causal pairs
+    pairs = S * (S + 1) // 2 if causal else S * S
+    ops = 4 * BH * hd * pairs                  # QK^T and PV over the pairs
     n_bytes = nbytes((q, k, v)) + q.numel() * q.element_size()
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / BF16_TENSOR_OPS_PER_S * 1e3
@@ -3173,16 +3600,20 @@ def flash_entry(name, path, launches, tc_launches, flash_err, BH, BKV, S,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes_ms": bytes_ms, "operations_ms": ops_ms,
             "shape": [BH, BKV, S, S, hd], "dtype": "bfloat16",
-            "causal": True, "path": path}
+            "causal": causal, "path": path}
 
 
-def lm_entries(serve_launches, jamba_launches, flash_err, rms_err):
+def lm_entries(serve_launches, jamba_launches, whisper_launches, flash_err,
+               whisper_flash, rms_err):
     """K5 at one prefill layer of llama3.2-1b (Sq = Sk = 1024, B*H = 32,
     B*KV = 8, hd 64) and of jamba (B*H = 64, B*KV = 8, hd 128), bf16,
-    causal; K8 in bf16 at llama's 1024 x 2048 (prefill) and 4 x 2048 (a
-    decode step of four slots), and jamba's at D 8192 (its layer norms)
-    and 16 384 (the norm inside each mamba mixer), 1024 rows and 4: device
-    ms, with-host ms, plain ms, the library call's ms, the bound."""
+    causal, and at one encoder layer of whisper as it serves 8 clips (Sq =
+    Sk = 1500, B*H = B*KV = 160, hd 64, non-causal; the worst error of
+    whisper's own cases in flash_attention_vs_plain beside it); K8 in
+    bf16 at llama's 1024 x 2048 (prefill) and 4 x 2048 (a decode step of
+    four slots), and jamba's at D 8192 (its layer norms) and 16 384 (the
+    norm inside each mamba mixer), 1024 rows and 4: device ms, with-host
+    ms, plain ms, the library call's ms, the bound."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(2)
     bf = torch.bfloat16
@@ -3192,6 +3623,16 @@ def lm_entries(serve_launches, jamba_launches, flash_err, rms_err):
            flash_entry("flash_attention_jamba", "serve_jamba_at_size prefill",
                        jamba_launches["k5"], jamba_launches["k5_tc"],
                        flash_err, 64, 8, 1024, 128, gen)]
+    wh = flash_entry("flash_attention_whisper",
+                     "serve_whisper_at_size prefill (encoder)",
+                     whisper_launches["k5"], whisper_launches["k5_tc"],
+                     flash_err, WHISPER_BATCH * 20, WHISPER_BATCH * 20, 1500,
+                     64, gen, causal=False)
+    wh["whisper_cases_max_abs_err"] = max(c["max_abs_err"]
+                                          for c in whisper_flash)
+    wh["whisper_cases_err_over_limit"] = max(c["err_over_limit"]
+                                             for c in whisper_flash)
+    out.append(wh)
     src = "src/repro_torch/kernels/csrc/"
     # jamba's norms a forward: at D 8192 two a layer and the final one, at
     # D 16 384 one a mamba mixer
@@ -3244,10 +3685,12 @@ def floor_ms():
 
 
 #: Fig. 3's depth (and the scan rollout's horizon, which follows it): 18
-#: critical sections per config, 7437 planned steps, early exit at 7072.
-#: The eager plain version takes most of the script's time (270-335 s at
-#: 25 CS); at 16 or fewer the planned horizon leaves a config short.
+#: critical sections per config, 7437 planned steps, early exit at 7072;
+#: at 16 or fewer the planned horizon leaves a config short.  The eager
+#: plain version took 172-218 s at 18 (a third of the script), 59 s at 5
+#: (2066 steps): kernel and plain are compared at FIG3_COMPARE_CS.
 FIG3_TARGET_CS = 18
+FIG3_COMPARE_CS = 4
 AT_SIZE_TARGET_CS = 50
 AT_SIZE_SCENARIOS = 6667        # x 15 variants = 100 005 configs
 #: The arrival diagram: 834 scenarios x (2 arrival rows x 4 loads = 8
@@ -3491,7 +3934,7 @@ def main():
           "nvcc": KB.nvcc_release(), "torch": torch.__version__,
           "torch_cuda": torch.version.cuda})
 
-    flash_err = phase_flash_attention_vs_plain()
+    flash_err, whisper_flash = phase_flash_attention_vs_plain()
     rms_err = phase_rmsnorm_vs_plain()
     phase_lm_vs_plain()
     serve_launches = phase_serve_at_size()
@@ -3503,6 +3946,8 @@ def main():
     phase_moe_lm_vs_plain()
     jamba_launches = phase_serve_at_size("serve_jamba_at_size", JAMBA,
                                          JAMBA_LAYERS)
+    phase_whisper_lm_vs_plain()
+    whisper_launches = phase_serve_whisper_at_size()
     t_train = time.perf_counter()
     grad_excess_by_kernel = phase_train_grad_vs_plain()
     train_lm_launches = phase_train_lm_vs_plain()
@@ -3520,14 +3965,16 @@ def main():
     arrs, _, ares, open_launches = phase_arrival_at_size()
     diagram_launches = phase_diagrams()
     paper_launches = phase_paper_figures()
+    phase_bench_stream_smoke()
+    phase_bench_run_quick()
     floor = floor_ms()
     entries = (closed_entries(cfgs, steps, big, launches, scan_launches,
                               max_abs_err, step_abs_err)
                + open_entries(arrs, ares, open_launches, scan_launches,
                               open_abs_err, step_abs_err)
                + [oracle_entry(oracle_args)]
-               + lm_entries(serve_launches, jamba_launches, flash_err,
-                            rms_err)
+               + lm_entries(serve_launches, jamba_launches, whisper_launches,
+                            flash_err, whisper_flash, rms_err)
                + rwkv6_entries(rwkv6_launches, scan_err)
                + mamba_entries(jamba_launches, mamba_err))
     train_keys = {"flash_attention": ("k5", "k5_per_step"),
@@ -3544,7 +3991,8 @@ def main():
         elif entry["name"] in ("rwkv6_scan", "mamba_scan"):
             entry["train_launches"] = train_lm_launches[
                 "k6" if entry["name"] == "rwkv6_scan" else "k7"]
-        kern = entry["name"].split("_jamba")[0].split("_decode")[0]
+        kern = entry["name"].split("_jamba")[0].split("_whisper")[0].split(
+            "_decode")[0]
         if kern in grad_excess_by_kernel:
             entry["grad_max_err_over_limit"] = grad_excess_by_kernel[kern]
         # the sweep layer's path: K1 in the closed grids, K1-open in the

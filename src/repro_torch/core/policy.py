@@ -1411,9 +1411,60 @@ def encode_configs(configs, strict: bool = True) -> dict:
     Vectorized: column inputs go straight through numpy column math
     (:func:`encode_columns`, no per-config Python at all — the 100k+
     streaming path); object lists take one attribute pass
-    (:func:`config_columns`) first.
+    (:func:`config_columns`) first.  Output is bit-identical to
+    :func:`encode_configs_legacy`, the per-field implementation kept as
+    the equality and ``perf_bench`` baseline.
     """
     if isinstance(configs, dict):
         return encode_columns(configs, strict=strict)
     return encode_columns(config_columns(configs), validate=False)
+
+
+def encode_configs_legacy(configs) -> dict:
+    """The per-lambda baseline implementation of :func:`encode_configs`
+    (one list comprehension per column, a Python lambda + property call
+    per config per field).  Kept for the equality tests and as the
+    ``perf_bench`` encode suite's baseline; new code should call
+    :func:`encode_configs`."""
+    import numpy as np
+
+    configs = list(configs)
+    if not configs:
+        raise ValueError("empty config batch")
+
+    def col(fn, dtype):
+        return np.asarray([fn(c) for c in configs], dtype=dtype)
+
+    return {
+        "policy": col(lambda c: POLICY_IDS[c.lock], np.int32),
+        "threads": col(lambda c: c.threads, np.int32),
+        "cores": col(lambda c: c.cores, np.float32),
+        "cs_lo": col(lambda c: c.cs[0], np.float32),
+        "cs_hi": col(lambda c: c.cs[1], np.float32),
+        "ncs_lo": col(lambda c: c.ncs[0], np.float32),
+        "ncs_hi": col(lambda c: c.ncs[1], np.float32),
+        "wake": col(lambda c: c.wake_latency, np.float32),
+        "alpha": col(lambda c: c.alpha_eff, np.float32),
+        "sws_init": col(lambda c: c.sws_start, np.int32),
+        "sws_max": col(lambda c: max(c.sws_max_eff, c.sws_start), np.int32),
+        "k": col(lambda c: c.k, np.int32),
+        "spin_budget": col(lambda c: c.spin_budget, np.float32),
+        "seed": col(lambda c: c.seed, np.uint32),
+        "oracle": col(lambda c: ORACLE_IDS[c.oracle], np.int32),
+        "workload": col(lambda c: WORKLOAD_IDS[c.workload], np.int32),
+        "wl_period": col(lambda c: c.wl_period, np.float32),
+        "wl_duty": col(lambda c: c.wl_duty, np.float32),
+        "wl_burst": col(lambda c: c.wl_burst, np.float32),
+        "wl_spread": col(lambda c: c.wl_spread, np.float32),
+        "arrival_phase": col(lambda c: c.arrival_phase, np.float32),
+        "arrival": col(lambda c: ARRIVAL_IDS[c.arrival], np.int32),
+        "arr_rate": col(lambda c: c.arrival_rate, np.float32),
+        "q_cap": col(lambda c: c.queue_cap, np.int32),
+        "slo": col(lambda c: c.slo, np.float32),
+        "tb": col(lambda c: TIE_BREAK_IDS[c.tie_break], np.int32),
+        "fault": col(lambda c: FAULT_IDS[c.fault], np.int32),
+        "flt_rate": col(lambda c: c.fault_rate, np.float32),
+        "flt_scale": col(lambda c: c.fault_scale, np.float32),
+        "park_cost": col(lambda c: c.park_cost, np.float32),
+    }
 

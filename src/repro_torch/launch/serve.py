@@ -4,7 +4,11 @@
         --tiny --device cpu --requests 24 --slots 4
 
 Any decoder-only arch of the catalog serves (``--arch rwkv6-1.6b``,
-``--arch jamba-1.5-large-398b --tiny``, ...).
+``--arch jamba-1.5-large-398b --tiny``, ...).  An encoder-decoder arch
+(whisper) is refused with a ``ValueError``: the reference's
+``DecodeEngine`` feeds its prefill no frames, so its CLI cannot serve one
+either; call ``repro_torch.models.prefill`` with ``{"tokens", "frames"}``
+and ``decode_step`` instead.
 
 The port of ``repro/launch/serve.py``: the same options, plus ``--device``
 (default: the card; ``cpu`` runs the plain PyTorch versions), ``--seed``
@@ -59,6 +63,12 @@ def build(args, cfg=None):
         cfg = cbase.get_config(args.arch)
         if args.tiny:
             cfg = catalog.tiny(cfg)
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: the serving engine feeds "
+            f"its prefill no frames (as the reference's DecodeEngine); "
+            f"call repro_torch.models.prefill(cfg, params, {{'tokens', "
+            f"'frames'}}) and decode_step directly")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = models.init_params(cfg, gen, device)
     return cfg, DecodeEngine(cfg, params, max_slots=args.slots,

@@ -16,7 +16,15 @@ The port of the serving half of ``repro/models/attention.py``:
 Cache layout.  The port keeps each layer's cache as (B, KV, Smax, hd) so
 that decode reads k as a plain batched-matrix operand;
 :mod:`repro_torch.models.convert` maps it to and from the reference's
-(B, Smax, KV, hd).  Cross-attention waits for the enc-dec slice.
+(B, Smax, KV, hd).
+
+* **Cross-attention** (:func:`cross_attention`, the encoder-decoder
+  stacks) is plain tensor code, as the reference's ``attend_dense`` is: a
+  non-causal softmax over the projected encoder positions, scores in f32.
+  :func:`project_enc_kv` gives the encoder's k / v in the cache layout
+  (B, KV, S_enc, hd).  The encoder's own self-attention is
+  :func:`self_attention` with ``causal=False, use_rope=False``: K5 on the
+  card.
 """
 
 from __future__ import annotations
@@ -188,3 +196,44 @@ def decode_attention_cp(acfg: AttentionConfig, params, x, cache_k, cache_v,
     y = decode_attention(acfg, params, x, cache_k, cache_v, cache_len,
                          window, rope_theta, norm_eps)
     return y, cache_k, cache_v
+
+
+def _grouped_attention(acfg: AttentionConfig, q, k, v):
+    """Every query against every key, no mask.  q: (B, Sq, H, hd); k, v:
+    (B, KV, Sk, hd).  Query head h reads kv head ``h // (H // KV)``; the
+    scores are the product in the input dtype, then f32, as in the
+    reference."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[1]
+    qg = q.transpose(1, 2).reshape(B, KV, (H // KV) * Sq, hd)
+    scale = 1.0 / math.sqrt(acfg.head_dim)
+    scores = (qg @ k.transpose(-1, -2)).float() * scale
+    scores = _softcap(scores, acfg.logit_softcap)
+    p = torch.softmax(scores, dim=-1)
+    out = p.to(v.dtype) @ v                          # (B, KV, g * Sq, hd)
+    return out.reshape(B, H, Sq, hd).transpose(1, 2)
+
+
+def cross_attention(acfg: AttentionConfig, params, x, enc_kv,
+                    norm_eps: float = 1e-6):
+    """Decoder cross-attention.  x: (B, S, D); enc_kv = (k, v), each (B, KV,
+    S_enc, hd), projected once per sequence (:func:`project_enc_kv`)."""
+    q = _project(x, params["wq"])
+    if acfg.qkv_bias:
+        q = q + params["bq"]
+    if acfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"], norm_eps)
+    out = _grouped_attention(acfg, q, *enc_kv)
+    return _out_project(acfg, params, out, x.dtype)
+
+
+def project_enc_kv(acfg: AttentionConfig, params, enc_out):
+    """The cross-attention k / v of the encoder's output (B, S_enc, D), each
+    (B, KV, S_enc, hd)."""
+    k = _project(enc_out, params["wk"])
+    v = _project(enc_out, params["wv"])
+    if acfg.qkv_bias:
+        k, v = k + params["bk"], v + params["bv"]
+    if acfg.qk_norm:
+        k = rmsnorm(k, params["k_norm"])
+    return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()

@@ -19,6 +19,12 @@ Training names each parameter leaf by its path in the reference's tree
 optimizer sees the reference's leaves (a stacked leaf is one tensor over
 the periods, as its weight decay and Adafactor's factoring and scales
 read it) and a checkpoint holds them under the reference's paths.
+
+An encoder-decoder's tree (whisper) is ``{"embed", "encoder": {part:
+{name: (encoder_layers, ...)}}, "enc_norm": {"w", "b"}, "decoder": {...},
+"dec_norm"}``, its leaves ``encoder/<part>/<name>`` stacked over the
+layers; its cache ``{"k", "v"}`` of shape (L, B, S, KV, hd), ``"enc_kv"``
+a pair of (L, B, S_enc, KV, hd) and ``"len"``.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
-from . import transformer
+from . import encdec, transformer
 
 
 def _tensor(a, device, dtype=None):
@@ -84,11 +90,28 @@ def _ref_name(name: str) -> str:
     return name
 
 
+def _encdec_leaves(model) -> dict:
+    out = {f"embed/{k}": v for k, v in model.embed.items()}
+    for stack in ("encoder", "decoder"):
+        groups: dict = {}
+        for layer in getattr(model, stack):
+            for part in layer.part_names:
+                for k, v in getattr(layer, part).items():
+                    groups.setdefault(f"{stack}/{part}/{k}", []).append(v)
+        out.update({k: tuple(v) for k, v in groups.items()})
+    for norm in ("enc_norm", "dec_norm"):
+        out.update({f"{norm}/{k}": v
+                    for k, v in getattr(model, norm).items()})
+    return out
+
+
 def param_leaves(cfg: ModelConfig, model) -> dict:
     """The model's parameters by the reference's leaf paths: an unstacked
     leaf (the embeddings, the final norm) maps to its parameter, a stacked
     one to the tuple of its layers' parameters in period order (the
     reference's leaf is their stack)."""
+    if cfg.is_encoder_decoder:
+        return _encdec_leaves(model)
     out = {f"embed/{k}": v for k, v in model.embed.items()}
     out["final_norm"] = model.final_norm
     groups: dict = {}
@@ -133,8 +156,18 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
     """The reference's parameter pytree (numpy leaves) as the port's
     module, on ``device`` (default: the card)."""
     device = resolve_device(device)
-    transformer.check_supported(cfg)
     t = lambda a: _tensor(a, device)
+    if cfg.is_encoder_decoder:
+        stacks = {}
+        for stack, n in (("encoder", cfg.encoder_layers),
+                         ("decoder", cfg.num_layers)):
+            st = tree[stack]
+            stacks[stack] = [{part: {k: t(v[l]) for k, v in st[part].items()}
+                              for part in st} for l in range(n)]
+        norm = lambda name: {k: t(v) for k, v in tree[name].items()}
+        return encdec.EncDec({k: t(v) for k, v in tree["embed"].items()},
+                             stacks["encoder"], norm("enc_norm"),
+                             stacks["decoder"], norm("dec_norm"))
     layers = []
     for l in range(cfg.num_layers):
         j, p = _layer_index(cfg, l)
@@ -150,6 +183,14 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
 def cache_from_numpy(cfg: ModelConfig, tree, device=None):
     """The reference's decode (or prefill) cache as the port's."""
     device = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        ek, ev = tree["enc_kv"]
+        swap = lambda a, l: _swap_layout("k", _tensor(a[l], device))
+        layers = [{"k": swap(tree["k"], l), "v": swap(tree["v"], l),
+                   "enc_k": swap(ek, l), "enc_v": swap(ev, l)}
+                  for l in range(cfg.num_layers)]
+        return {"layers": layers,
+                "len": _tensor(tree["len"], device, torch.int32)}
     layers = []
     for l in range(cfg.num_layers):
         j, p = _layer_index(cfg, l)
@@ -162,6 +203,12 @@ def cache_from_numpy(cfg: ModelConfig, tree, device=None):
 
 def cache_to_numpy(cfg: ModelConfig, cache):
     """The port's cache in the reference's layout (numpy, f32 for bf16)."""
+    if cfg.is_encoder_decoder:
+        st = lambda name: np.stack([_numpy(_swap_layout("k", e[name]))
+                                    for e in cache["layers"]])
+        return {"k": st("k"), "v": st("v"),
+                "enc_kv": (st("enc_k"), st("enc_v")),
+                "len": _numpy(cache["len"])}
     P, n = cfg.layers_per_period, cfg.num_periods
     stack = []
     for j in range(P):

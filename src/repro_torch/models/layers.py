@@ -1,9 +1,8 @@
 """Shared building blocks: inits, norms, rotary embeddings, embeddings,
 the chunked cross-entropy and the gated FFN.
 
-The port of ``repro/models/layers.py`` (whisper's gelu MLP waits for the
-enc-dec slice): the same
-functions over dicts of tensors, in the reference's layouts and dtypes.
+The port of ``repro/models/layers.py``: the same functions over dicts of
+tensors, in the reference's layouts and dtypes.
 Inits draw from an explicit ``torch.Generator`` (not JAX's keys: the two
 give different numbers from one seed; the tests carry JAX's parameters over
 with :func:`repro_torch.models.convert.params_from_numpy`).  The sharding
@@ -52,12 +51,26 @@ def zeros(shape, dtype, device):
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
+def ones(shape, dtype, device):
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
 # --------------------------------------------------------------------------
 # Norms
 # --------------------------------------------------------------------------
 def rmsnorm(x, w, eps: float = 1e-6):
     """RMSNorm in f32 (returned in x's dtype), through K8 on the card."""
     return kernel_rmsnorm(x.contiguous(), w, eps)
+
+
+def layernorm(x, w, b, eps: float = 1e-5):
+    """LayerNorm in f32 (returned in x's dtype): plain tensor code, as the
+    reference computes it outside any kernel."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
 
 
 def act_fn(name: str):
@@ -179,3 +192,18 @@ def mlp(params, x, act: str):
     h = x @ params["w_gate"]
     u = x @ params["w_in"]
     return (act_fn(act)(h) * u) @ params["w_out"]
+
+
+# --------------------------------------------------------------------------
+# Whisper-style GELU MLP (no gate), for the encoder-decoder stacks
+# --------------------------------------------------------------------------
+def init_mlp_nogate(gen, d_model, d_ff, dtype, device):
+    return {"w_in": fan_in_init(gen, (d_model, d_ff), dtype, device),
+            "b_in": zeros((d_ff,), dtype, device),
+            "w_out": fan_in_init(gen, (d_ff, d_model), dtype, device),
+            "b_out": zeros((d_model,), dtype, device)}
+
+
+def mlp_nogate(params, x, act: str = "gelu"):
+    h = x @ params["w_in"] + params["b_in"]
+    return act_fn(act)(h) @ params["w_out"] + params["b_out"]

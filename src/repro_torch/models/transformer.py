@@ -9,8 +9,7 @@ as scan data; here the stack is an ``nn.ModuleList`` of :class:`Layer`
 looped in Python, and each layer carries its window and theta as plain
 numbers (:func:`layer_schedules`).
 
-Enc-dec configs raise ``NotImplementedError`` naming the slice that will
-port them.
+Encoder-decoder configs are :mod:`repro_torch.models.encdec`'s.
 
 Training (:func:`loss_fn`) runs :func:`forward_hidden` in ``mode="train"``:
 the MoE layers add their load-balancing loss, and under ``cfg.remat !=
@@ -49,16 +48,6 @@ from . import moe as moe_mod
 from . import rwkv6 as rwkv
 from .layers import (chunked_xent, dtype_of, embed, init_embed, init_mlp,
                      mlp, rmsnorm, unembed_logits, zeros)
-
-_ENCDEC = ("encoder-decoder stacks land in a later slice of the port "
-           "(ROADMAP.md S2)")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for an encoder-decoder config."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: {_ENCDEC}")
-
 
 def _frozen(tensors: dict) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
@@ -129,7 +118,6 @@ def layer_spec(cfg: ModelConfig, l: int) -> LayerSpec:
 def build(cfg: ModelConfig, embed_params, final_norm, layer_params):
     """The module from parameter tensors; ``layer_params`` holds one
     ``(norm1, norm2, parts)`` per layer (:class:`Layer`)."""
-    check_supported(cfg)
     win, theta = layer_schedules(cfg)
     return Transformer(embed_params, final_norm,
                        [Layer(layer_spec(cfg, l), *p, w, th) for l, (p, w, th)
@@ -161,7 +149,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
     """Random parameters, drawn in order from ``gen`` (embeddings, then
     layer by layer), on ``device``; ``gen=None`` allocates uninitialised
     tensors (``device="meta"`` for shapes alone)."""
-    check_supported(cfg)
     dtype = dtype_of(cfg.param_dtype)
     D = cfg.d_model
     embed_params = init_embed(gen, cfg.vocab_size, D, dtype, device,
@@ -273,7 +260,6 @@ def loss_fn(cfg: ModelConfig, model: Transformer, batch):
     (B, S), optional mask (B, S).  Returns (total, {"ce", "aux"}): aux is
     the mean over the MoE layers, weighted into the total by
     ``router_aux_coef``."""
-    check_supported(cfg)
     x = embed_inputs(cfg, model, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
@@ -319,7 +305,6 @@ def _cache_entry(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
     """Empty decode cache sized for ``max_seq`` total positions."""
-    check_supported(cfg)
     return {"layers": [_cache_entry(cfg, layer_spec(cfg, l), batch, max_seq,
                                     device)
                        for l in range(cfg.num_layers)],

@@ -5,13 +5,14 @@ returns
 
     train_step(state, batch) -> (state', metrics)
 
-where ``state = {"params": the model (a Transformer whose parameters
-require grad), "opt": the optimizer's state, "step": an int32 0-d
-tensor}``.  The step computes the loss and its gradients through the
+where ``state = {"params": the model (a Transformer or an EncDec whose
+parameters require grad), "opt": the optimizer's state, "step": an int32
+0-d tensor}``.  The step computes the loss and its gradients through the
 model's kernels and their backwards (:func:`_grads_plain`, with
 ``tcfg.grad_accum`` microbatches summed in ``tcfg.accum_dtype``), hands
 the optimizer the reference's leaves (the gradients and parameters of a
-layer stacked over the periods, by the reference's paths:
+layer stacked over the periods, or over an encoder-decoder's two stacks,
+by the reference's paths:
 :func:`repro_torch.models.convert.param_leaves`) and writes the updates
 back into the model's parameters in place.  The reference's int8
 error-feedback compression of the cross-pod all-reduce needs a pod mesh
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import convert, transformer
+from repro_torch.models import convert
 
 from .optimizer import TrainConfig, apply_updates, make_optimizer
 
@@ -72,7 +73,7 @@ def state_of(cfg: ModelConfig, tcfg: TrainConfig, model):
         {k: convert.stack_leaf(v) for k, v in leaves.items()})
     return {"params": model, "opt": opt,
             "step": torch.zeros((), dtype=torch.int32,
-                                device=model.final_norm.device)}
+                                device=models.device_of(model))}
 
 
 def _split_microbatches(batch: dict, n: int) -> list:
@@ -94,7 +95,7 @@ def _grads_plain(cfg: ModelConfig, model, batch: dict, accum: int = 1,
     flat = _flat(leaves)
 
     def one(mb):
-        loss, metrics = transformer.loss_fn(cfg, model, mb)
+        loss, metrics = models.family(cfg).loss_fn(cfg, model, mb)
         grads = torch.autograd.grad(loss, flat, materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
@@ -119,7 +120,7 @@ def _grads_plain(cfg: ModelConfig, model, batch: dict, accum: int = 1,
 
 
 def _on(model, batch: dict) -> dict:
-    dev = model.final_norm.device
+    dev = models.device_of(model)
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
@@ -160,7 +161,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 def make_eval_step(cfg: ModelConfig):
     def eval_step(params, batch):
         with torch.no_grad():
-            loss, metrics = transformer.loss_fn(cfg, params,
-                                                _on(params, batch))
+            loss, metrics = models.family(cfg).loss_fn(cfg, params,
+                                                       _on(params, batch))
         return {"loss": loss, **metrics}
     return eval_step

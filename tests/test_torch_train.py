@@ -4,8 +4,8 @@ package's on the CPU, f32, tiny configs, JAX's parameters carried over with
 ``repro_torch.models.convert.params_from_numpy`` and the same batches
 (numpy, seeded) fed to both.
 
-* ``loss_fn`` and its gradients for every arch ``init_params`` accepts
-  (whisper, an encoder-decoder, raises): loss within 1e-5 relative, every
+* ``loss_fn`` and its gradients for every decoder-only arch (whisper's
+  are in ``test_torch_encdec.py``): loss within 1e-5 relative, every
   gradient leaf within 1e-4 * max(1, max|JAX's|).  The MoE archs carry the
   aux loss; gemma3's tiny window schedule (8) is shorter than the 16-token
   sequence; rwkv6's time-mix groupnorm weight is drawn from the seed (at the
@@ -124,12 +124,6 @@ def test_rwkv6_scan_and_moe_router_get_gradients():
         model.requires_grad_(True)
         _, _, g = _port_grads(tcfg, model, _batch(2, 16))
         assert float(g[key].abs().max()) > 0, key
-
-
-def test_loss_fn_refuses_encoder_decoder():
-    cfg = tcatalog.tiny(tbase.get_config("whisper-large-v3"))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        tm.transformer.loss_fn(cfg, None, _batch(1, 4))
 
 
 def test_eval_step_matches_the_loss_and_keeps_no_graph():
