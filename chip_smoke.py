@@ -229,6 +229,20 @@ LM15. ``train_resume``  ``examples/train_resume.py``'s flow through the
    once), every CSV has a line per cell and every Markdown report is
    non-empty, and the streamed grid's on-card wins equal the host fold of
    its own per-config completed / t_end in f32.
+12a. ``sharded_sweeps``  the config-axis split
+   (``simulate_batch(shard=...)``, ``sweep_stream(shard=...)``,
+   ``repro_torch.device.shard_devices``) at size, each run against its
+   unsharded run above: (a) the 100 005-config bucketed ``at_size`` sweep
+   with ``shard=True`` on card 0 (one shard, on a stream of its own); (b)
+   the same with 4 shards forced on card 0 (``REPRO_TORCH_SHARDS=4``,
+   four streams); (c) the 100 080-config arrival sweep through K1-open
+   with 4 forced shards; (d) the 100 050-config streamed fault grid
+   (``sweep.fault_grid``) with 4 forced shards; (e) where more than one
+   card is visible, (a) over all of them.  Fails unless every run equals
+   its unsharded run in every field bit for bit (a stream's wins and
+   latency histograms too) and each shard launched its kernel once for
+   every launch of the unsharded run.  Per run: shards, seconds,
+   config-steps/s, launches in all and per shard, peak bytes of card 0.
 13. ``paper_figures``  the paper's own artifacts on the port
    (``repro_torch.bench.lockbench``, ``fidelity_study``, ``sched_bench``
    and the event-driven DES ``repro_torch.core.des``): Fig. 1 on the DES
@@ -273,8 +287,9 @@ LM15. ``train_resume``  ``examples/train_resume.py``'s flow through the
    latency-bound, growing from small w issue-bound), and the launches
    its path made (the block kernel in the sweeps, the step pair in the
    scan rollouts, ``oracle_step`` on no path: 0; the block kernel's two
-   entries also carry ``diagrams_launches`` and
-   ``paper_figures_launches``, its launches in those phases); ``flash_attention`` at
+   entries also carry ``diagrams_launches``, ``sharded_sweeps_launches``
+   (over every shard) and ``paper_figures_launches``, its launches in
+   those phases); ``flash_attention`` at
    one prefill layer of llama3.2-1b and of jamba (hd 64 and 128, both on
    the tensor cores, each with its own bound and SDPA time) and at one
    encoder layer of whisper as it serves (non-causal, B*H 160, S 1500,
@@ -337,6 +352,7 @@ from repro_torch.core import stream as S  # noqa: E402
 from repro_torch.core import des as DES  # noqa: E402
 from repro_torch.core import xdes  # noqa: E402
 from repro_torch.core.policy import SimConfig  # noqa: E402
+from repro_torch.device import ENV_SHARDS  # noqa: E402
 from repro_torch.kernels import build as KB  # noqa: E402
 from repro_torch.kernels import lm_lib  # noqa: E402
 from repro_torch.kernels import lock_sim as K  # noqa: E402
@@ -1047,7 +1063,7 @@ def phase_arrival_at_size():
           "median_p95_us": float(np.nanmedian(res.p95) * 1e6),
           "winners": {cells[i]: names[int(np.argmax(res.wins[i]))]
                       for i in range(ARRIVAL_CELLS)}})
-    return arrs, steps, res, launches
+    return arrs, steps, res, launches, (cols, reduce)
 
 
 def phase_at_size(n_scenarios):
@@ -1092,7 +1108,7 @@ def phase_at_size(n_scenarios):
           "device_busy_seconds": busy if traced else None,
           "kernel_device_seconds": kernel_busy if traced else None,
           "device_idle_share": 1.0 - busy / s_again if traced else None})
-    return cfgs, steps, max(buckets, key=len), launches
+    return cfgs, steps, max(buckets, key=len), launches, res
 
 
 class SweepCalls:
@@ -1277,7 +1293,8 @@ def phase_diagrams():
     emit({"phase": "diagrams", "seconds": time.perf_counter() - t_phase,
           "target_cs": 150, "grids": grids})
     opened = grids["arrival_diagram"]["launches"]
-    return sum(g["launches"] for g in grids.values()) - opened, opened
+    return ((sum(g["launches"] for g in grids.values()) - opened, opened),
+            (res, launches))
 
 
 def refine_record(refine, calls):
@@ -1304,6 +1321,114 @@ def refine_record(refine, calls):
            "dense_dropped": meta["n_dense_dropped"], **call_summary(calls)}
     rec["config_steps_per_s"] = rec["config_steps"] / rec["sweep_seconds"]
     return rec
+
+# --------------------------------------------------------------------------
+# phase 12a: the config-axis split
+# --------------------------------------------------------------------------
+@contextlib.contextmanager
+def forced_shards(n):
+    """``REPRO_TORCH_SHARDS=n`` while entered (``None``: unset)."""
+    old = os.environ.pop(ENV_SHARDS, None)
+    if n is not None:
+        os.environ[ENV_SHARDS] = str(n)
+    try:
+        yield
+    finally:
+        os.environ.pop(ENV_SHARDS, None)
+        if old is not None:
+            os.environ[ENV_SHARDS] = old
+
+
+def sharded_run(run, shards, base_launches, opened=False):
+    """One split run: ``run()`` with the launch counts set to 0 just
+    before, between two ``synchronize()`` of every card, card 0's peak
+    reset.  Fails unless each shard launched its kernel variant once for
+    each of the unsharded run's ``base_launches`` and the other variant
+    never.  Returns (result, record)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    torch.cuda.reset_peak_memory_stats(0)
+    K.lock_sim_block.launches = K.lock_sim_block.open_launches = 0
+    t0 = time.perf_counter()
+    res = run()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    seconds = time.perf_counter() - t0
+    launches, other = launch_counts()
+    if opened:
+        launches, other = other, launches
+    if launches != shards * base_launches or other != 0:
+        fail(f"sharded_sweeps: {launches} launches ({other} of the other "
+             f"variant) over {shards} shards, unsharded {base_launches}")
+    steps = int(res.steps_run.astype(np.int64).sum())
+    return res, {"shards": shards, "seconds": seconds,
+                 "config_steps_per_s": steps / seconds,
+                 "launches": launches, "launches_per_shard": base_launches,
+                 "peak_bytes_card0": torch.cuda.max_memory_allocated(0)}
+
+
+STREAM_FIELDS = (S.SUMMARY_FIELDS + S.OPEN_SUMMARY_FIELDS
+                 + ("lat_hist", "dt", "wins"))
+
+
+def phase_sharded_sweeps(smi, at_size, arrival, fault):
+    """The split at size, each run against its unsharded run of
+    ``at_size``, ``arrival_at_size`` and ``diagrams`` (``(inputs, result,
+    launches)`` each)."""
+    t_phase = time.perf_counter()
+    cfgs, at_res, at_launches = at_size
+    (cols, reduce), ares, a_launches = arrival
+    fres, f_launches = fault
+    fields = RESULT_FIELDS[:1] + RESULT_FIELDS[2:] + ("fairness", "dt")
+    runs = {}
+
+    def at_size_run(shards, **kw):
+        res, rec = sharded_run(lambda: timed_sweep(cfgs, shard=True, **kw)[0],
+                               shards, at_launches)
+        compare_results(res, at_res, f"sharded_sweeps at_size x{shards}",
+                        fields)
+        return rec
+
+    runs["a_at_size_card0"] = at_size_run(1, device="cuda:0")
+    with forced_shards(4):
+        runs["b_at_size_4_on_card0"] = at_size_run(4, device="cuda:0")
+        res, runs["c_arrival_4"] = sharded_run(
+            lambda: S.sweep_stream(cols, target_cs=AT_SIZE_TARGET_CS,
+                                   reduce=reduce, max_threads=32,
+                                   shard=True),
+            4, a_launches, opened=True)
+        compare_results(res, ares, "sharded_sweeps arrival x4",
+                        STREAM_FIELDS)
+        runs["c_arrival_4"]["chunks"] = res.n_chunks
+        meta = {}
+
+        def fault_run():
+            """The grid through the sweep layer; its one sweep's result."""
+            with SweepCalls() as rec:
+                meta.update(B.fault_grid(
+                    n_scenarios=FAULT_STREAM_SCENARIOS, target_cs=150,
+                    stream=True, shard=True, verbose=False)["meta"])
+            if len(rec.calls) != 1:
+                fail(f"sharded_sweeps fault: {len(rec.calls)} sweep calls")
+            return rec.calls[0]["result"]
+
+        res, runs["d_fault_streamed_4"] = sharded_run(fault_run, 4,
+                                                      f_launches)
+        if (meta["n_devices"], meta["sharded"]) != (4, True):
+            fail(f"sharded_sweeps fault: meta {meta}")
+        compare_results(res, fres, "sharded_sweeps fault x4",
+                        S.SUMMARY_FIELDS + ("dt", "wins"))
+        runs["d_fault_streamed_4"]["chunks"] = res.n_chunks
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        runs["e_at_size_all_cards"] = at_size_run(cards)
+    emit({"phase": "sharded_sweeps", "card": smi, "cards": cards,
+          "seconds": time.perf_counter() - t_phase, "equal": True,
+          "runs": runs})
+    return {opened: sum(r["launches"] for k, r in runs.items()
+                        if k.startswith("c_") == opened)
+            for opened in (False, True)}
+
 
 # --------------------------------------------------------------------------
 # phase 13: the paper's figures on the port
@@ -3960,10 +4085,13 @@ def main():
     oracle_args = phase_oracle_kernel_vs_plain()
     phase_fig3()
     scan_launches = phase_scan_equals_blocked()
-    cfgs, steps, big, launches = phase_at_size(AT_SIZE_SCENARIOS)
+    cfgs, steps, big, launches, at_res = phase_at_size(AT_SIZE_SCENARIOS)
     phase_stream_identity()
-    arrs, _, ares, open_launches = phase_arrival_at_size()
-    diagram_launches = phase_diagrams()
+    arrs, _, ares, open_launches, arrival_in = phase_arrival_at_size()
+    diagram_launches, fault_streamed = phase_diagrams()
+    sharded_launches = phase_sharded_sweeps(
+        smi, (cfgs, at_res, launches), (arrival_in, ares, open_launches),
+        fault_streamed)
     paper_launches = phase_paper_figures()
     phase_bench_stream_smoke()
     phase_bench_run_quick()
@@ -4000,6 +4128,7 @@ def main():
         if entry["name"] in ("lock_sim_block", "lock_sim_block_open"):
             opened = entry["name"] == "lock_sim_block_open"
             entry["diagrams_launches"] = diagram_launches[opened]
+            entry["sharded_sweeps_launches"] = sharded_launches[opened]
             # the paper's figures: Fig. 3, the DES bands, the fidelity
             # study, the scheduler sweep
             entry["paper_figures_launches"] = paper_launches[opened]

@@ -33,14 +33,15 @@ import os
 
 from repro_torch.bench import sweep
 from repro_torch.configs.catalog import lock_discipline_variants
+from repro_torch.device import shard_count
 
 
 def auto_scenarios(base: int, n_variants: int,
-                   max_configs: int = 100_000) -> int:
-    """Scale the scenario count to the attached devices: ``base`` per
-    device, capped so the grid stays under ``max_configs`` rows.  The port
-    runs on one card, so the count is the reference's on one device."""
-    return min(base * sweep.ONE_CARD["n_devices"],
+                   max_configs: int = 100_000, device=None) -> int:
+    """Scale the scenario count to the shard devices of ``device``
+    (:func:`repro_torch.device.shard_count`): ``base`` per shard, capped
+    so the grid stays under ``max_configs`` rows."""
+    return min(base * max(1, shard_count(device)),
                max(base, max_configs // max(1, n_variants)))
 
 
@@ -117,6 +118,9 @@ def main(argv=None) -> dict:
                     help="default: the CUDA card; 'cpu' runs the plain "
                          "versions on the host")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-shard", action="store_true",
+                    help="turn the config-axis split off even where there "
+                         "is more than one shard device")
     ap.add_argument("--stream", choices=("auto", "on", "off"),
                     default="auto",
                     help="run the grid chunk-by-chunk under a memory "
@@ -134,11 +138,13 @@ def main(argv=None) -> dict:
 
     n_variants = len(lock_discipline_variants())
     base = 24 if args.quick else 200
-    n_scenarios = args.scenarios or auto_scenarios(base, n_variants)
+    n_scenarios = args.scenarios or auto_scenarios(
+        base, n_variants, device=args.device)
     result = sweep.discipline_grid(
         n_scenarios=n_scenarios,
         target_cs=args.target_cs or (40 if args.quick else 150),
         backend=args.backend, seed=args.seed,
+        shard=False if args.no_shard else None,
         stream={"auto": None, "on": True, "off": False}[args.stream],
         mem_mb=args.mem_mb, device=args.device)
     if args.refine:
@@ -147,6 +153,7 @@ def main(argv=None) -> dict:
             factor=2 if args.quick else 3,
             target_cs=args.target_cs or (40 if args.quick else 150),
             backend=args.backend, seed=args.seed,
+            shard=False if args.no_shard else None,
             mem_mb=args.mem_mb, device=args.device)
 
     out_dir = os.path.dirname(args.out) or "."

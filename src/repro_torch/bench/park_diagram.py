@@ -122,6 +122,9 @@ def main(argv=None) -> dict:
                     help="default: the CUDA card; 'cpu' runs the plain "
                          "versions on the host")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-shard", action="store_true",
+                    help="turn the config-axis split off even where there "
+                         "is more than one shard device")
     ap.add_argument("--stream", choices=("auto", "on", "off"),
                     default="auto",
                     help="run the grid chunk-by-chunk under a memory "
@@ -135,11 +138,13 @@ def main(argv=None) -> dict:
 
     n_cells = len(LOCK_PARK_COSTS) * len(lock_discipline_variants())
     base = 8 if args.quick else 50
-    n_scenarios = args.scenarios or auto_scenarios(base, n_cells)
+    n_scenarios = args.scenarios or auto_scenarios(
+        base, n_cells, device=args.device)
     result = sweep.park_grid(
         n_scenarios=n_scenarios,
         target_cs=args.target_cs or (40 if args.quick else 150),
         backend=args.backend, seed=args.seed,
+        shard=False if args.no_shard else None,
         stream={"auto": None, "on": True, "off": False}[args.stream],
         mem_mb=args.mem_mb, device=args.device)
 

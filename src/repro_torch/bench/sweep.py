@@ -31,9 +31,12 @@ reference's grids, so one diagram writer reads the results of either
 package.  ``backend="kernel"`` (default) runs the hand-written CUDA
 kernels (``lock_sim_block``, closed and open), ``backend="ref"`` their
 plain PyTorch versions.  ``device=None`` is the card and raises without
-CUDA; ``device="cpu"`` runs the plain versions on the host.  One card:
-the meta records ``n_devices`` 1 and ``sharded`` False, and
-``shard=True`` raises ``NotImplementedError``.
+CUDA; ``device="cpu"`` runs the plain versions on the host.  Every
+batched call splits its config axis over the shard devices
+(``simulate_batch(shard=...)``: every visible card, or
+``REPRO_TORCH_SHARDS`` forced shards) when there is more than one, or
+when ``shard=True`` asks; ``shard=False`` turns the split off.  The
+grids' meta records ``n_devices`` (the shard count) and ``sharded``.
 
 Every one-shot batched call is gated by ``BatchResult.validate()``: a
 non-finite engine output raises with the offending config named.  Every
@@ -84,7 +87,7 @@ from repro_torch.configs.catalog import (LOCK_ARRIVAL_RHOS, LOCK_ARRIVALS,
 from repro_torch.core import stream as xstream
 from repro_torch.core import xdes
 from repro_torch.core.policy import POLICY_IDS, POLICY_ROW
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, shard_count, splits
 
 #: Config count at which the grids switch to the streaming path by
 #: default (stream=None): below it the one-shot batched call is simpler
@@ -99,17 +102,15 @@ STREAM_AUTO = 50_000
 #: so a run of the port never overwrites one of the reference.
 FAILURES_PATH = os.path.join("reports", "torch", "sweep_failures.json")
 
-#: The meta keys every sharded grid of the reference records, on one card.
-ONE_CARD = {"n_devices": 1, "sharded": False}
-
-
-def _one_card(device, shard: bool | None = None):
-    """The device a grid runs on, resolved before any host work:
-    ``device=None`` is the card and raises without CUDA; ``shard=True``
-    raises until the multi-GPU split lands."""
-    if shard:
-        raise NotImplementedError(xdes._SHARD_LATER)
-    return resolve_device(device)
+def _placement(device, shard: bool | None = None):
+    """The device a grid runs on, resolved before any host work
+    (``device=None`` is the card and raises without CUDA), and the meta
+    keys of its split as the reference records them: ``n_devices``, the
+    shard count, and ``sharded``, ``bool(shard)`` if given, else whether
+    there is more than one shard."""
+    device = resolve_device(device)
+    return device, {"n_devices": shard_count(device),
+                    "sharded": splits(shard, device)}
 
 
 def _variant_name(v: dict) -> str:
@@ -127,7 +128,7 @@ def _variant_name(v: dict) -> str:
 def fig3_batched(target_cs: int = 250, seeds=(0, 1),
                  backend: str = "kernel", device=None,
                  verbose: bool = True) -> dict:
-    device = _one_card(device)
+    device = resolve_device(device)
     configs = lock_fig3_grid(seeds=seeds)
     t0 = time.time()
     res = xdes.simulate_batch(configs, target_cs=target_cs, backend=backend,
@@ -216,7 +217,7 @@ def scenario(n_scenarios: int = 200, target_cs: int = 150,
     grid as column arrays through :func:`repro_torch.core.stream.
     sweep_stream` under the ``mem_mb`` memory budget, with the per-lock
     win counts accumulated on device."""
-    device = _one_card(device)
+    device = resolve_device(device)
     locks = list(LOCK_DISCIPLINES)
     C = n_scenarios * len(locks)
     if stream is None:
@@ -344,7 +345,7 @@ def oracle_grid(n_scenarios: int = 200, target_cs: int = 150,
       wins where" artifact rendered by
       :mod:`repro_torch.bench.oracle_ablation`.
     """
-    device = _one_card(device)
+    device = resolve_device(device)
     variants = lock_oracle_variants(oracles, ks, sws_maxes)
     V = len(variants)
     C = n_scenarios * V
@@ -470,7 +471,7 @@ def discipline_grid(n_scenarios: int = 200, target_cs: int = 150,
       wins where" artifact rendered by
       :mod:`repro_torch.bench.discipline_diagram`.
     """
-    device = _one_card(device, shard)
+    device, split = _placement(device, shard)
     variants = lock_discipline_variants(disciplines, oracles)
     V = len(variants)
     C = n_scenarios * V
@@ -543,7 +544,7 @@ def discipline_grid(n_scenarios: int = 200, target_cs: int = 150,
                  "n_scenarios": n_scenarios,
                  "n_variants": V, "n_configs": C,
                  "n_steps": res.n_steps, "wall_s": round(wall, 2),
-                 **ONE_CARD,
+                 **split,
                  "streamed": bool(stream),
                  "configs_per_s": round(C / max(wall, 1e-9), 1)},
         "variants": out_variants,
@@ -601,7 +602,7 @@ def workload_grid(n_scenarios: int = 100, target_cs: int = 150,
     slice of ``V`` variants is one reduction group, so the on-device
     argmax is the same within-workload contest.
     """
-    device = _one_card(device, shard)
+    device, split = _placement(device, shard)
     disc_variants = lock_discipline_variants(disciplines, oracles)
     W, V = len(workloads), len(disc_variants)
     C = n_scenarios * W * V
@@ -694,7 +695,7 @@ def workload_grid(n_scenarios: int = 100, target_cs: int = 150,
                  "n_workloads": W, "n_variants": V,
                  "n_configs": C, "n_steps": res.n_steps,
                  "wall_s": round(wall, 2),
-                 **ONE_CARD,
+                 **split,
                  "streamed": bool(stream),
                  "configs_per_s": round(C / max(wall, 1e-9), 1),
                  "workloads": list(workloads),
@@ -754,7 +755,7 @@ def arrival_grid(n_scenarios: int = 50, target_cs: int = 150,
     reshape to ``(n_scenarios, n_arrivals, n_rhos, n_variants)``.
     Scenarios follow the :func:`sample_scenarios` seed contract, so every
     cell sees the same machines scenario-by-scenario."""
-    device = _one_card(device, shard)
+    device, split = _placement(device, shard)
     disc_variants = lock_discipline_variants(disciplines, oracles)
     A, R, V = len(arrivals), len(rhos), len(disc_variants)
     C = n_scenarios * A * R * V
@@ -855,7 +856,7 @@ def arrival_grid(n_scenarios: int = 50, target_cs: int = 150,
                  "n_arrivals": A, "n_rhos": R, "n_variants": V,
                  "n_configs": C, "n_steps": res.n_steps,
                  "wall_s": round(wall, 2),
-                 **ONE_CARD,
+                 **split,
                  "streamed": bool(stream),
                  "configs_per_s": round(C / max(wall, 1e-9), 1),
                  "arrivals": list(arrivals), "rhos": list(rhos),
@@ -920,7 +921,7 @@ def fault_grid(n_scenarios: int = 100, target_cs: int = 150,
     ``(scenario, fault)`` slice of ``V`` variants is one reduction
     group, so the on-device argmax is the same within-fault contest.
     """
-    device = _one_card(device, shard)
+    device, split = _placement(device, shard)
     disc_variants = lock_discipline_variants(disciplines, oracles)
     F, V = len(faults), len(disc_variants)
     C = n_scenarios * F * V
@@ -1023,7 +1024,7 @@ def fault_grid(n_scenarios: int = 100, target_cs: int = 150,
                  "n_faults": F, "n_variants": V,
                  "n_configs": C, "n_steps": res.n_steps,
                  "wall_s": round(wall, 2),
-                 **ONE_CARD,
+                 **split,
                  "streamed": bool(stream),
                  "configs_per_s": round(C / max(wall, 1e-9), 1),
                  "faults": list(faults),
@@ -1084,7 +1085,7 @@ def park_grid(n_scenarios: int = 50, target_cs: int = 150,
     Scenarios follow the :func:`sample_scenarios` seed contract, so the
     ``park_cost=1`` slice IS the discipline diagram's machine
     scenario-by-scenario."""
-    device = _one_card(device, shard)
+    device, split = _placement(device, shard)
     disc_variants = lock_discipline_variants(disciplines, oracles)
     K, V = len(park_costs), len(disc_variants)
     C = n_scenarios * K * V
@@ -1182,7 +1183,7 @@ def park_grid(n_scenarios: int = 50, target_cs: int = 150,
                  "n_park_costs": K, "n_variants": V,
                  "n_configs": C, "n_steps": res.n_steps,
                  "wall_s": round(wall, 2),
-                 **ONE_CARD,
+                 **split,
                  "streamed": bool(stream),
                  "configs_per_s": round(C / max(wall, 1e-9), 1),
                  "park_costs": list(park_costs),
@@ -1234,7 +1235,7 @@ def refine_grid(nx: int = 16, ny: int = 12, factor: int = 3,
     ``max_configs`` (dense points beyond the cap are dropped, reported in
     ``meta``).
     """
-    device = _one_card(device, shard)
+    device = resolve_device(device)
     variants = lock_discipline_variants(disciplines, oracles)
     V = len(variants)
 

@@ -121,6 +121,9 @@ def main(argv=None) -> dict:
                     help="default: the CUDA card; 'cpu' runs the plain "
                          "versions on the host")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-shard", action="store_true",
+                    help="turn the config-axis split off even where there "
+                         "is more than one shard device")
     ap.add_argument("--stream", choices=("auto", "on", "off"),
                     default="auto",
                     help="run the grid chunk-by-chunk under a memory "
@@ -134,12 +137,14 @@ def main(argv=None) -> dict:
 
     n_variants = len(lock_workload_variants())
     base = 12 if args.quick else 100
-    n_scenarios = args.scenarios or auto_scenarios(base, n_variants)
+    n_scenarios = args.scenarios or auto_scenarios(
+        base, n_variants, device=args.device)
     result = sweep.workload_grid(
         n_scenarios=n_scenarios,
         target_cs=args.target_cs or (40 if args.quick else 150),
         backend=args.backend, seed=args.seed,
         workloads=LOCK_WORKLOADS,
+        shard=False if args.no_shard else None,
         stream={"auto": None, "on": True, "off": False}[args.stream],
         mem_mb=args.mem_mb, device=args.device)
 

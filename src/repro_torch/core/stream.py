@@ -12,9 +12,11 @@ the same blocked (and optionally bucketed) rollout chunk by chunk instead:
   the budget — an explicit ``mem_mb``, the ``REPRO_SWEEP_MEM_MB`` env
   var, :data:`DEVICE_MEM_FRACTION` of the card's memory, else a CPU
   default — and :func:`plan_chunks` divides the two, rounded down to a
-  multiple of ``reduce.group`` so reduction groups never straddle a chunk
-  boundary.  Each chunk runs its real rows only: the kernel compiles
-  nothing per shape, so there is no shape ladder to pad onto.
+  multiple of the quantum ``lcm(reduce.group, n_shards)`` so reduction
+  groups never straddle a chunk boundary and every chunk splits evenly
+  over the shards.  The budget is one device's, as in the reference.
+  Each chunk runs its real rows only: the kernel compiles nothing per
+  shape, so there is no shape ladder to pad onto.
 * **On-device reduction.**  Chunks run ``keep_per_thread=False``: the
   ``(chunk, T)`` state reduces on the device to per-config summary
   columns, and only those reach the host.  An optional
@@ -23,36 +25,41 @@ the same blocked (and optionally bucketed) rollout chunk by chunk instead:
   ``group``-row block — the phase-diagram accumulation).
 * **Composition.**  ``bucket_steps=True`` buckets the global step plan
   before chunking, so per-config horizons match the one-shot bucketed
-  path.  With ``early_exit=False`` results are bit-identical to one-shot
-  ``simulate_batch`` and invariant to chunk boundaries (configs are
-  independent).
+  path.  Every chunk runs through the config-axis split of
+  :func:`repro_torch.core.xdes.simulate_columns` (``shard``, as in
+  ``simulate_batch``).  With ``early_exit=False`` results are
+  bit-identical to one-shot ``simulate_batch`` and invariant to chunk
+  boundaries and to the split (configs are independent).
 * **Self-healing.**  ``checkpoint_dir=`` checkpoints the summary columns,
   the win counts and the chunk cursor after every committed chunk through
   :class:`repro_torch.checkpoint.manager.CheckpointManager` (the
   reference's on-disk layout); ``resume=True`` restores the latest
   checkpoint (guarded by a sweep-plan fingerprint) and skips the
   committed chunks.  A chunk that dies with ``torch.cuda.OutOfMemoryError``
-  is retried as two half chunks, down to one reduction group; any other
-  error propagates unchanged.  Non-finite summaries are quarantined into
+  is retried as two half chunks, down to one quantum; any other error
+  propagates unchanged.  Non-finite summaries are quarantined into
   ``StreamResult.failures`` and sanitized before the win reduction.
 
 Feed it RAW column arrays (:data:`repro_torch.core.policy.
 RAW_CONFIG_FIELDS`, e.g. from the ``*_columns`` builders of
 :mod:`repro_torch.configs.catalog`) or a list of
 :class:`~repro_torch.core.policy.SimConfig`.  ``device=None`` is the card
-(raises without CUDA); ``shard=True`` raises ``NotImplementedError``.
+(raises without CUDA).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from repro_torch.device import shard_count, splits
 
 from . import policy as P
 from . import xdes
@@ -292,32 +299,34 @@ class StreamResult:
 
 
 def _run_chunk(arrs, n_steps: int, T: int, backend: str, block_steps: int,
-               target_cs: int, open_loop: bool, device):
-    """One batched run on an encoded chunk: the blocked rollout,
-    ``keep_per_thread=False`` (summaries reduce on the device)."""
+               target_cs: int, open_loop: bool, shard: bool, device):
+    """One batched run on an encoded chunk: the blocked rollout, split
+    over the shards when ``shard``, ``keep_per_thread=False`` (summaries
+    reduce on the device)."""
     return xdes.simulate_columns(
         arrs, int(n_steps), T=T, backend=backend, block_steps=block_steps,
         target_cs=target_cs, keep_per_thread=False, open_loop=open_loop,
-        device=device)
+        shard=shard, device=device)
 
 
 def _run_chunk_resilient(part, horizon, T, backend, block_steps, target_cs,
-                         open_loop, group: int, device, verbose: bool = False):
+                         open_loop, shard: bool, quantum: int, device,
+                         verbose: bool = False):
     """Run one chunk with halving backoff: ``torch.cuda.OutOfMemoryError``
-    — and only that — splits the chunk into two group-aligned halves and
-    retries each, recursively down to one reduction group.  Returns the
+    — and only that — splits the chunk into two quantum-aligned halves
+    and retries each, recursively down to one quantum.  Returns the
     summary dict of the chunk's rows."""
     n = part["policy"].shape[0]
     try:
         res = _run_chunk(part, horizon, T, backend, block_steps, target_cs,
-                         open_loop, device)
+                         open_loop, shard, device)
         return {k: np.asarray(v) for k, v in res.items()}
     except torch.cuda.OutOfMemoryError as e:
-        if n <= group:
+        if n <= quantum:
             raise
         if torch.cuda.is_available():
             torch.cuda.empty_cache()       # give the halves the freed blocks
-        mid = group * max(1, (n // 2) // group)
+        mid = quantum * max(1, (n // 2) // quantum)
         if verbose:
             print(f"  stream chunk of {n} configs hit "
                   f"{type(e).__name__}; retrying as {mid} + {n - mid}")
@@ -327,7 +336,7 @@ def _run_chunk_resilient(part, horizon, T, backend, block_steps, target_cs,
             stacklevel=2)
     halves = [_run_chunk_resilient(
         {k: v[lo:hi] for k, v in part.items()}, horizon, T, backend,
-        block_steps, target_cs, open_loop, group, device, verbose)
+        block_steps, target_cs, open_loop, shard, quantum, device, verbose)
         for lo, hi in ((0, mid), (mid, n))]
     return {k: np.concatenate([h[k] for h in halves]) for k in halves[0]}
 
@@ -430,12 +439,11 @@ def sweep_stream(configs, *, target_cs: int = 300,
     out-of-memory chunks retry halved; non-finite summaries are
     quarantined into ``StreamResult.failures`` (and ``failures_path``
     when given) with sanitized rows feeding the win-count reduction.
-    ``device=None`` runs on the card and raises without CUDA;
-    ``shard=True`` raises ``NotImplementedError`` (the multi-GPU split is
-    not ported).
+    ``device=None`` runs on the card and raises without CUDA.  ``shard``
+    splits every chunk over the shard devices as ``simulate_batch`` does
+    (``None``: iff there is more than one); a sharded sweep's checkpoint
+    never resumes an unsharded one's, nor the reverse.
     """
-    if shard:
-        raise NotImplementedError(xdes._SHARD_LATER)
     device = xdes.resolve_device(device)
     cols = configs if isinstance(configs, dict) else \
         P.config_columns(configs)
@@ -475,14 +483,16 @@ def sweep_stream(configs, *, target_cs: int = 300,
         block_steps = xdes.DEFAULT_BLOCK_STEPS
     tc = int(target_cs) if early_exit else 0
 
+    shard = splits(shard, device)
+    n_shards = shard_count(device) if shard else 1
     group = reduce.group if reduce is not None else 1
-    quantum = group
+    quantum = group * n_shards // math.gcd(group, n_shards)
     if chunk is None:
         chunk = plan_chunks(C, T, mem_mb=mem_mb, quantum=quantum,
                             open_loop=open_loop, device=device)
     elif chunk % quantum:
         raise ValueError(f"chunk={chunk} not a multiple of the "
-                         f"group quantum {quantum}")
+                         f"group/shard quantum {quantum}")
     bpc = bytes_per_config(T, open_loop=open_loop)
     budget_mb = memory_budget_bytes(mem_mb, device) / 2**20
 
@@ -527,7 +537,7 @@ def sweep_stream(configs, *, target_cs: int = 300,
         fp = _plan_fingerprint(
             arrs, chunk=chunk, T=T, n_steps=int(n_steps),
             target_cs=tc, backend=backend, bucket_steps=bucket_steps,
-            shard=False, group=group)
+            shard=shard, group=group)
         template = {"out": {k: np.zeros_like(v) for k, v in out.items()},
                     "wins": (np.zeros((reduce.n_cells, group), np.int32)
                              if reduce is not None
@@ -568,8 +578,8 @@ def sweep_stream(configs, *, target_cs: int = 300,
         part = {k: v[sel] for k, v in arrs.items()}
         n = hi - lo
         res = _run_chunk_resilient(part, horizon, T, backend,
-                                   int(block_steps), tc, open_loop, group,
-                                   device, verbose)
+                                   int(block_steps), tc, open_loop, shard,
+                                   quantum, device, verbose)
         for f in SUMMARY_FIELDS:
             out[f][sel] = res[f]
         if open_loop:

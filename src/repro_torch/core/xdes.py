@@ -26,8 +26,13 @@ Entry points run on the card: ``device=None`` resolves to CUDA and raises
 when there is none.  Pass ``device="cpu"`` to run the plain versions on the
 host, as the tests do.
 
-Not ported yet: ``shard=True`` (the multi-GPU config-axis split) raises
-``NotImplementedError`` naming its slice.
+The config axis splits over the shard devices
+(:func:`repro_torch.device.shard_devices`: every visible card, or
+``REPRO_TORCH_SHARDS`` forced shards): ``simulate_batch(shard=...)`` pads
+the batch to a multiple of the shard count, gives each shard a contiguous
+block of rows and runs the rollout on all of them in lockstep, with the
+early exit agreed across shards.  No value crosses a shard, so the results
+equal the unsharded call's bit for bit.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import Shard, resolve_device, shard_devices, splits
 from repro_torch.kernels import lock_sim as K
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import NO_TICKET
@@ -59,10 +64,6 @@ _PRM_FIELDS = ("policy", "threads", "dt", "wake", "cs_lo", "cs_hi",
                "fault", "flt_rate", "flt_scale", "park_cost")
 
 _CTR = ref.BLOCK_STATE.index("ctr")
-
-_SHARD_LATER = ("shard=True is not ported yet: the multi-GPU config-axis "
-                "split (ROADMAP.md M7) lands after the single-card path is "
-                "whole")
 
 
 # --------------------------------------------------------------------------
@@ -220,103 +221,193 @@ def _check_kernel_ids(cols, open_loop: bool) -> None:
                        open_loop=open_loop)
 
 
-def _simulate_core(cols, n_steps: int, T: int, backend: str = "kernel",
+class _ShardRun:
+    """One shard's part of a rollout: its column tensors, its carry, and
+    the :class:`~repro_torch.device.Shard` under whose device and stream
+    all of its work is queued."""
+
+    def __init__(self, cols, shard: Shard, T: int, backend: str,
+                 open_loop: bool):
+        self.cols, self.shard, self.open_loop = cols, shard, open_loop
+        with shard.scope():
+            if backend == "kernel":   # ids checked once here, not per launch
+                _check_kernel_ids(cols, open_loop)
+            self.has_budget = P.discipline_flags(cols["policy"])[2] > 0
+            self.prm = tuple(cols[f] for f in _PRM_FIELDS)
+            self.state = _init_state(cols, T, open_loop)
+
+    def scan(self, n_steps: int, advance, transitions):
+        """A generator that queues one advance / rewind / transition triple
+        per ``next``, ``n_steps`` of them."""
+        cols, dt = self.cols, self.cols["dt"]
+        with self.shard.scope():
+            steps = torch.arange(n_steps, dtype=torch.int32,
+                                 device=dt.device)
+        for step in range(n_steps):
+            with self.shard.scope():
+                state = self.state
+                st, i = state[0], steps[step]
+                i_f = i.to(torch.float32)
+                now2 = (i_f + 1.0) * dt
+                rem, burn = advance(st, state[1], cols["alpha"],
+                                    cols["cores"], dt, self.has_budget)
+                rem = ref.fault_rewind(st, rem, cols["alpha"], cols["cores"],
+                                       dt, i_f * dt, cols["seed"],
+                                       cols["fault"], cols["flt_rate"],
+                                       cols["flt_scale"])
+                out = transitions(st, rem, *state[2:16], now2, i, *self.prm,
+                                  open_state=(state[17:] if self.open_loop
+                                              else None))
+                self.state = (*out[:16], state[16] + burn,
+                              *(out[16:] if self.open_loop else ()))
+            yield
+
+    def block(self, block, step0: int, n_sub_steps: int, limit: int) -> None:
+        """Queue one launch of the block function from timestep
+        ``step0``."""
+        s, cols = self.state, self.cols
+        with self.shard.scope():
+            self.state = block(*s[:17], step0, cols["alpha"], cols["cores"],
+                               self.has_budget, *self.prm,
+                               n_sub_steps=n_sub_steps, limit=limit,
+                               open_state=s[17:] if self.open_loop else None)
+
+    def converged(self, target_cs: int) -> bool:
+        """Whether every config of the shard has completed ``target_cs``
+        critical sections: one flag read back."""
+        with self.shard.scope():
+            return bool((self.state[14] >= target_cs).all())
+
+    def result(self, executed: int, keep_per_thread: bool) -> dict:
+        """The output dict (:func:`_out_dict`, reduced on the shard's
+        device) as numpy arrays."""
+        with self.shard.scope():
+            out = _out_dict(self.state, executed, self.cols, keep_per_thread)
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _simulate_core(parts, n_steps: int, T: int, backend: str = "kernel",
                    rollout: str = "blocked",
                    block_steps: int = DEFAULT_BLOCK_STEPS,
                    target_cs: int = 0, early_exit: bool | None = None,
                    keep_per_thread: bool = True, open_loop: bool = False):
-    """Simulate ``n_steps`` timesteps of every config; returns the output
-    dict of tensors (on the columns' device).
+    """Simulate ``n_steps`` timesteps of every config of every shard.
+    ``parts`` lists ``(cols, shard)`` pairs, each shard's column tensors on
+    its device.  Returns the output dict as numpy arrays, the shards' rows
+    concatenated in order.
 
+    The shards run in lockstep: each step (scan) or block (blocked) is
+    queued on every shard, under its device and stream, before anything
+    is read back.
     ``rollout="blocked"``: ``ceil(n_steps / block_steps)`` launches of the
-    block function, the ``limit`` mask turning the tail block's overshoot
-    sub-steps into passthroughs.  With early exit on, the loop stops at
-    the first block boundary where every config has completed
-    ``target_cs`` critical sections; the test is one device-to-host read
-    per block.  ``early_exit=None`` means on iff ``target_cs > 0``.
+    block function a shard, the ``limit`` mask turning the tail block's
+    overshoot sub-steps into passthroughs.  With early exit on, the loop
+    stops at the first block boundary where every config of every shard
+    has completed ``target_cs`` critical sections; the test reads one
+    flag back per shard and block.  No shard stops before the others, so
+    every row runs the steps it runs unsharded.  ``early_exit=None``
+    means on iff ``target_cs > 0``.
     ``rollout="scan"``: one advance / rewind / transition triple per step
     (two kernel launches on the kernel backend), no early exit — the
     parity reference.
     ``open_loop=True`` carries the 11 OPEN_STATE arrays as well (28 in
     all) on every rollout and backend."""
     n_steps = int(n_steps)
-    has_budget = P.discipline_flags(cols["policy"])[2] > 0
-    state = _init_state(cols, T, open_loop)
-    prm = tuple(cols[f] for f in _PRM_FIELDS)
     if early_exit is None:
         early_exit = target_cs > 0
-
     if backend not in ("kernel", "ref"):
         raise ValueError(f"unknown backend {backend!r} (kernel|ref)")
+    if rollout not in ("blocked", "scan"):
+        raise ValueError(f"unknown rollout {rollout!r} (blocked|scan)")
+    runs = [_ShardRun(cols, shard, T, backend, open_loop)
+            for cols, shard in parts]
 
     if rollout == "scan":
         advance, transitions = _step_backends(backend)
-        if backend == "kernel":     # ids checked once here, not per launch
-            _check_kernel_ids(cols, open_loop)
+        if backend == "kernel":     # ids checked by _ShardRun
             transitions = functools.partial(transitions, ids_checked=True)
-        dt = cols["dt"]
-        spin_cpu = state[16]
-        ostate = state[17:] if open_loop else None
-        state = state[:16]
-        steps = torch.arange(n_steps, dtype=torch.int32, device=dt.device)
-        for step in range(n_steps):
-            st, rem = state[0], state[1]
-            i = steps[step]
-            i_f = i.to(torch.float32)
-            now2 = (i_f + 1.0) * dt
-            rem, burn = advance(st, rem, cols["alpha"], cols["cores"], dt,
-                                has_budget)
-            rem = ref.fault_rewind(st, rem, cols["alpha"], cols["cores"],
-                                   dt, i_f * dt, cols["seed"], cols["fault"],
-                                   cols["flt_rate"], cols["flt_scale"])
-            out = transitions(st, rem, *state[2:], now2, i, *prm,
-                              open_state=ostate)
-            state, ostate = out[:16], (out[16:] if open_loop else None)
-            spin_cpu = spin_cpu + burn
-        return _out_dict((*state, spin_cpu, *(ostate or ())), n_steps, cols,
-                         keep_per_thread)
-
-    if rollout != "blocked":
-        raise ValueError(f"unknown rollout {rollout!r} (blocked|scan)")
-
-    if backend == "kernel":     # ids checked once here, not per launch
-        _check_kernel_ids(cols, open_loop)
-        block = functools.partial(K.lock_sim_block, ids_checked=True)
+        steppers = [r.scan(n_steps, advance, transitions) for r in runs]
+        for _ in range(n_steps):
+            for s in steppers:
+                next(s)
+        executed = n_steps
     else:
-        block = ref.lock_sim_block_ref
-    B = max(1, int(block_steps))
-    n_blocks = (n_steps + B - 1) // B
-    nblk, done = 0, False
-    while nblk < n_blocks and not done:
-        state = block(*state[:17], nblk * B, cols["alpha"], cols["cores"],
-                      has_budget, *prm, n_sub_steps=B, limit=n_steps,
-                      open_state=state[17:] if open_loop else None)
-        nblk += 1
-        if early_exit:      # one flag read back per block
-            done = bool((state[14] >= target_cs).all())
-    executed = min(nblk * B, n_steps)
-    return _out_dict(state, executed, cols, keep_per_thread)
+        if backend == "kernel":     # ids checked by _ShardRun
+            block = functools.partial(K.lock_sim_block, ids_checked=True)
+        else:
+            block = ref.lock_sim_block_ref
+        B = max(1, int(block_steps))
+        n_blocks = (n_steps + B - 1) // B
+        nblk, done = 0, False
+        while nblk < n_blocks and not done:
+            for r in runs:
+                r.block(block, nblk * B, B, n_steps)
+            nblk += 1
+            if early_exit:      # the exit is agreed across shards
+                done = all(r.converged(target_cs) for r in runs)
+        executed = min(nblk * B, n_steps)
+    outs = [r.result(executed, keep_per_thread) for r in runs]
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+def _pad_rows(arrs: dict, n: int) -> dict:
+    """Pad every column to ``n`` rows with copies of the last row: the
+    copies run as their source row does, so the early exit and every
+    result are unchanged once they are sliced off."""
+    C = arrs["policy"].shape[0]
+    if n <= C:
+        return arrs
+    return {k: np.concatenate([v, np.repeat(v[-1:], n - C, axis=0)])
+            for k, v in arrs.items()}
+
+
+def _shards(shard: bool | None, device: torch.device) -> list[Shard]:
+    """The shards of a run on ``device``: the shard devices
+    (:func:`repro_torch.device.shard_devices`) when splitting —
+    ``shard=None`` splits iff there is more than one — else the device
+    itself on its current stream."""
+    return shard_devices(device) if splits(shard, device) else [Shard(device)]
+
+
+def _simulate_sharded(arrs, shards: list[Shard], n_steps: int, T: int,
+                      **kw) -> dict:
+    """Run an encoded column dict (numpy, ``encode_configs`` output plus
+    ``dt``) split over ``shards``: the config axis padded to a multiple of
+    the shard count (:func:`_pad_rows`), one contiguous block of rows
+    carried to each shard's device, :func:`_simulate_core` over all of
+    them in lockstep, the padding sliced off.  ``kw`` are
+    :func:`_simulate_core`'s.  Returns the output dict as numpy arrays."""
+    n = len(shards)
+    C = arrs["policy"].shape[0]
+    arrs = _pad_rows(arrs, C + (-C) % n)
+    m = arrs["policy"].shape[0] // n
+    parts = []
+    for i, shard in enumerate(shards):
+        with shard.scope():
+            parts.append((columns_from_numpy(
+                {k: v[i * m:(i + 1) * m] for k, v in arrs.items()},
+                shard.device), shard))
+    out = _simulate_core(parts, n_steps, T, **kw)
+    return {k: v[:C] for k, v in out.items()}
 
 
 def simulate_columns(arrs, n_steps: int, *, T: int, backend: str = "kernel",
                      block_steps: int = DEFAULT_BLOCK_STEPS,
                      target_cs: int = 0, keep_per_thread: bool = True,
-                     open_loop: bool = False, device=None) -> dict:
+                     open_loop: bool = False, shard: bool | None = None,
+                     device=None) -> dict:
     """One batched run of an encoded column dict (``encode_configs``
     output plus ``dt``, numpy) through the blocked rollout: the horizon
     and ``target_cs`` are plain ints, early exit is on iff
-    ``target_cs > 0``.  Returns the output dict as numpy arrays.  This
-    is the streamed sweep's entry (:mod:`repro_torch.core.stream`), the
-    counterpart of the reference's ``_simulate_dyn``."""
-    out = _simulate_core(columns_from_numpy(arrs, device), int(n_steps),
-                         int(T), backend=backend, rollout="blocked",
-                         block_steps=int(block_steps),
-                         target_cs=int(target_cs),
-                         early_exit=int(target_cs) > 0,
-                         keep_per_thread=keep_per_thread,
-                         open_loop=open_loop)
-    return {k: v.cpu().numpy() for k, v in out.items()}
-
+    ``target_cs > 0``; ``shard`` as in :func:`simulate_batch`.  Returns
+    the output dict as numpy arrays.  This is the streamed sweep's entry
+    (:mod:`repro_torch.core.stream`), the counterpart of the reference's
+    ``_simulate_dyn`` and ``_simulate_sharded``."""
+    return _simulate_sharded(
+        arrs, _shards(shard, resolve_device(device)), int(n_steps), int(T),
+        backend=backend, rollout="blocked", block_steps=int(block_steps),
+        target_cs=int(target_cs), early_exit=int(target_cs) > 0,
+        keep_per_thread=keep_per_thread, open_loop=open_loop)
 
 # --------------------------------------------------------------------------
 # Scheduling heuristics + public API
@@ -555,14 +646,16 @@ OPEN_RESULT_FIELDS = ("lat_hist", "arrived", "shed", "departed", "slo_viol",
 
 
 def _simulate_bucketed(configs, buckets, steps, *, target_cs, dt, backend,
-                       max_threads, rollout, block_steps, early_exit,
-                       keep_per_thread, open_loop, device) -> BatchResult:
+                       max_threads, shard, rollout, block_steps,
+                       early_exit, keep_per_thread, open_loop,
+                       device) -> BatchResult:
     """Run each step-count bucket as its own batched call and stitch the
     per-config results back into the caller's row order.  ``dt`` and
     ``steps`` are the (C,) planned arrays — passed down sliced, so the
     per-bucket calls skip re-planning.  Each bucket's config axis is
     padded to the next power of two (copies of its last row, sliced off
-    again), as the reference does.  ``open_loop`` is resolved once by the
+    again), as the reference does; a split divides each padded bucket
+    over the shards.  ``open_loop`` is resolved once by the
     caller and forced on every bucket, so a mixed batch whose open configs
     all land in one bucket still returns open-loop outputs for every
     row."""
@@ -572,7 +665,7 @@ def _simulate_bucketed(configs, buckets, steps, *, target_cs, dt, backend,
         [configs[i] for i in idx], target_cs=target_cs,
         dt=np.asarray(dt)[idx],
         n_steps=min(int(steps[idx].max()), MAX_STEPS),
-        backend=backend, max_threads=T, rollout=rollout,
+        backend=backend, max_threads=T, shard=shard, rollout=rollout,
         block_steps=block_steps, early_exit=early_exit,
         bucket_steps=False, keep_per_thread=keep_per_thread,
         open_loop=open_loop,
@@ -635,19 +728,23 @@ def simulate_batch(configs, *, target_cs: int = 300,
     * ``pad_configs`` pads the batch with copies of the last config up to
       the given count (results sliced back); results are unchanged
       because configs are independent.
+    * ``shard`` splits the config axis over the shard devices
+      (:func:`repro_torch.device.shard_devices`: every visible card, or
+      ``REPRO_TORCH_SHARDS`` forced shards): ``None`` (default) iff there
+      is more than one, ``True`` always (one shard on one card still runs
+      the split, on a stream of its own), ``False`` never.  The batch is
+      padded to a multiple of the shard count, each shard runs a
+      contiguous block of rows, and all run in lockstep with the early
+      exit agreed across them: every field equals the unsharded run's bit
+      for bit.  A shard that fails raises; nothing falls back.
 
     ``open_loop=None`` (auto) switches on the open-loop arrival engine iff
     any config has a non-closed arrival row; a closed batch carries no
     OPEN_STATE arrays.  Forcing ``open_loop=True`` on an all-closed batch
     is valid — the open machinery runs but stays inert (rate 0 admits
     nothing) and every closed output is unchanged.
-
-    ``shard=True`` raises ``NotImplementedError``: the multi-GPU split has
-    not landed.
     """
     configs = list(configs)
-    if shard:
-        raise NotImplementedError(_SHARD_LATER)
     if open_loop is None:
         open_loop = any(c.open_loop for c in configs)
     device = resolve_device(device)
@@ -666,8 +763,8 @@ def simulate_batch(configs, *, target_cs: int = 300,
                                      (len(configs),)).copy()
             return _simulate_bucketed(
                 configs, buckets, steps_arr, target_cs=target_cs, dt=dt,
-                backend=backend, max_threads=max_threads, rollout=rollout,
-                block_steps=block_steps,
+                backend=backend, max_threads=max_threads, shard=shard,
+                rollout=rollout, block_steps=block_steps,
                 # a bucketed horizon is auto-planned: exit by default
                 early_exit=True if early_exit is None else early_exit,
                 keep_per_thread=keep_per_thread, open_loop=open_loop,
@@ -692,22 +789,21 @@ def simulate_batch(configs, *, target_cs: int = 300,
         raise ValueError(f"n_steps={n_steps} exceeds MAX_STEPS={MAX_STEPS}")
     arrs["dt"] = np.asarray(dt, np.float32)
     C = len(configs)
-    if pad_configs is not None and pad_configs > C:
-        pad = pad_configs - C
-        arrs = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
-                for k, v in arrs.items()}
+    if pad_configs is not None:
+        arrs = _pad_rows(arrs, pad_configs)
     T = max_threads or int(arrs["threads"].max())
     if T < int(arrs["threads"].max()):
         raise ValueError("max_threads smaller than widest config")
     if block_steps is None:
         block_steps = DEFAULT_BLOCK_STEPS
     tc = int(target_cs) if (early_exit and rollout == "blocked") else 0
-    out = _simulate_core(columns_from_numpy(arrs, device), int(n_steps),
-                         int(T), backend=backend, rollout=rollout,
-                         block_steps=int(block_steps), target_cs=tc,
-                         early_exit=tc > 0, keep_per_thread=keep_per_thread,
-                         open_loop=bool(open_loop))
-    out = {k: v.cpu().numpy()[:C] for k, v in out.items()}
+    out = _simulate_sharded(arrs, _shards(shard, device), int(n_steps),
+                            int(T), backend=backend, rollout=rollout,
+                            block_steps=int(block_steps), target_cs=tc,
+                            early_exit=tc > 0,
+                            keep_per_thread=keep_per_thread,
+                            open_loop=bool(open_loop))
+    out = {k: v[:C] for k, v in out.items()}
     return BatchResult(configs=configs, n_steps=int(n_steps), backend=backend,
                        dt=np.asarray(dt, np.float32)[:C],
                        t_end=out["t_end"], completed=out["completed"],

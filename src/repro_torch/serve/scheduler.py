@@ -384,7 +384,8 @@ def xdes_policy_sweep(scenarios, policies=("zero", "max", "mutable"), *,
     batched :func:`repro_torch.core.xdes.simulate_batch` call
     (scenario-major, policy-minor row order), on the card through the
     ``lock_sim_block`` kernels (``backend="ref"``: their plain versions;
-    ``device="cpu"``: on the host; ``shard=True`` raises).
+    ``device="cpu"``: on the host; ``shard`` splits the batch over the
+    shard devices as :func:`repro_torch.core.xdes.simulate_batch` does).
 
     Returns per-policy aggregates in the scheduler's vocabulary:
     ``handoffs_per_s`` (throughput), ``cold_promotions_per_handoff``

@@ -167,11 +167,38 @@ def test_writer_reads_the_port_result(tmp_path):
         written(jdisc, got, tmp_path / "ref")
 
 
-def test_shard_true_raises_before_any_work():
-    for grid in ("discipline_grid", "workload_grid", "arrival_grid",
-                 "fault_grid", "park_grid", "refine_grid"):
-        with pytest.raises(NotImplementedError, match="shard=True"):
-            getattr(tsweep, grid)(shard=True, device="cpu", verbose=False)
+#: The six grids that take ``shard``, at the CPU's smallest sizes (27-34
+#: planned steps; the park grid's wake costs plan 136 at target_cs 1): a
+#: split runs the plain versions once a shard, whatever its rows.
+SHARDED = {
+    "discipline_grid": dict(n_scenarios=2, target_cs=2),
+    "workload_grid": dict(n_scenarios=1, target_cs=2),
+    "fault_grid": dict(n_scenarios=1, target_cs=2),
+    "park_grid": dict(n_scenarios=1, target_cs=1),
+    "arrival_grid": dict(n_scenarios=1, target_cs=2),
+    "refine_grid": dict(nx=2, ny=2, factor=2, target_cs=2,
+                        thread_range=(2, 6), cs_range=(1e-6, 3e-5)),
+}
+
+
+def test_shard_true_raises_before_any_work(monkeypatch):
+    """``shard=True`` at one forced shard runs the split and equals
+    ``shard=False`` in every integer, winner and float, for each of the
+    six grids; the meta records the split."""
+    from repro_torch.device import ENV_SHARDS
+
+    monkeypatch.setenv(ENV_SHARDS, "1")
+    for grid, kw in SHARDED.items():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")    # step-cap notes, nan-means
+            split, whole = (getattr(tsweep, grid)(
+                shard=shard, device="cpu", verbose=False, **kw)
+                for shard in (True, False))
+        assert assert_results_agree(split, whole, rtol=0.0) == 0.0, grid
+        if grid != "refine_grid":
+            assert split["meta"]["n_devices"] == 1, grid
+            assert (split["meta"]["sharded"],
+                    whole["meta"]["sharded"]) == (True, False), grid
 
 
 def test_variant_names_and_helpers_equal_reference():

@@ -203,8 +203,10 @@ def test_column_feed_matches_list_feed():
 
 def test_unported_and_device_paths_raise():
     cfgs = res_batch(4)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        S.sweep_stream(cfgs, n_steps=10, shard=True, device="cpu")
+    split, whole = (S.sweep_stream(cfgs, n_steps=10, shard=shard,
+                                   device="cpu") for shard in (True, False))
+    _assert_summaries_equal(split, whole, S.SUMMARY_FIELDS + OPEN_FIELDS,
+                            "shard=True")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             S.sweep_stream(cfgs, n_steps=10)     # device=None is the card

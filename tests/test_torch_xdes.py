@@ -163,8 +163,8 @@ def test_pad_configs_invariance():
 def test_unported_paths_raise():
     """Open-arrival configs and ``rollout="scan"`` on the kernel backend
     run now (on CPU tensors the scan's wrappers take the plain versions,
-    so it equals ``backend="ref"`` bit for bit); ``shard=True`` still
-    raises, naming its slice."""
+    so it equals ``backend="ref"`` bit for bit); ``shard=True`` runs the
+    config-axis split and equals ``shard=False`` bit for bit."""
     closed = SimConfig("mutable", 4, 4, SHORT, SHORT)
     opened = SimConfig("mutable", 4, 4, SHORT, SHORT, arrival="poisson",
                        arrival_rate=1e5)
@@ -175,8 +175,14 @@ def test_unported_paths_raise():
     assert forced.arrived.tolist() == [0]
     assert txdes.simulate_batch([closed], n_steps=8,
                                 device="cpu").lat_hist is None
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        txdes.simulate_batch([closed], n_steps=8, shard=True, device="cpu")
+    split, whole = (txdes.simulate_batch([closed, opened], n_steps=8,
+                                         shard=shard, device="cpu")
+                    for shard in (True, False))
+    for f in ("completed", "completed_per_thread", "wake_count",
+              "final_sws", "spin_cpu", "t_end", "steps_run", "lat_hist",
+              "departed"):
+        np.testing.assert_array_equal(getattr(split, f), getattr(whole, f),
+                                      err_msg=f)
     scans = [txdes.simulate_batch([closed, opened], n_steps=40,
                                   rollout="scan", backend=backend,
                                   device="cpu")
