@@ -104,6 +104,13 @@ LM11. ``serve_jamba_at_size``  ``serve_at_size`` for jamba-1.5-large at
    K8 15 times (two a layer, the final norm, one inside each mamba mixer),
    every decode step K8 15 times and K7 never; the peak bytes of
    ``init_params`` and of the drain.
+LM11a. ``serve_granite_at_size``  ``serve_at_size`` for granite-moe-1b-a400m
+   at full width and depth (24 layers of attention + MoE, 32 experts top
+   8, 1 334 628 352 bf16 parameters), the same traffic: every request
+   completes with every token in [0, V), every prefill launching K5 24
+   times (on the tensor cores: bf16, hd 64) and K8 49 times, every decode
+   step K8 49 times and K5 never, K6 and K7 never; the parameter count
+   equal to ``models.param_count``.
 LM12a. ``whisper_lm_vs_plain``  whisper-large-v3 at full width cut to 2
    encoder and 2 decoder layers, f32, one seeded set of weights: one clip
    of 1500 seeded frames and a 4-token prompt, prefill and 8 decode steps
@@ -160,6 +167,32 @@ LM15. ``train_resume``  ``examples/train_resume.py``'s flow through the
    after step 18 with a checkpoint every 10 and rerun to 30: the resumed
    steps 11-29 equal the uninterrupted run's losses within 1e-5 relative.
    A ``training`` line gives the four phases' seconds.
+LM16. ``mesh_world1``  the mesh path (``repro_torch.sharding``,
+   ``launch.mesh``) on one card: a process group of world size 1 (NCCL for
+   the card's tensors, gloo for the CPU's; a file store in a temporary
+   directory) and ``make_test_mesh(1, 1, pod=1)``, granite-moe at full
+   width and depth in bf16.  (a) 2 steps of ``launch.train.build(cfg,
+   tcfg, mesh, rules_for(..., "train"))`` at 4 x 2048 tokens (remat full)
+   against the same steps without the mesh from the same seed: loss within
+   1e-4 relative, every parameter leaf within 1e-3 * max|no-mesh| (an
+   element whose AdamW sign may differ within 3 x the summed learning
+   rates instead, at most 2 % of them), bit-equality recorded; K5 48 (on the tensor cores) and K8 97 a step.
+   (b) one int8-compressed step: loss and parameters within 5e-2 of (a)'s
+   first no-mesh step, the largest residual in ``ef``.  (c) prefill of 4
+   prompts of 256 tokens and 8 decode steps under ``rules_for(...,
+   "decode")`` (the mesh branches of ``decode_attention_cp`` and
+   ``moe_decode``) against the same run without the mesh, both fed the
+   no-mesh greedy tokens: where a row's forward routed alike at every
+   layer in both runs (at least 40 % of them), logits within 5e-2 *
+   max|no-mesh| and greedy tokens equal where the no-mesh top-2 margin
+   exceeds 1e-2; K5 24 and K8 49 a prefill, K8 49 and no K5 a decode
+   step.  (d) ``moe_ep`` on one MoE layer (4096 bf16 tokens, E 32, top 8,
+   capacity factor 1.25) on the card against the CPU: the kept
+   assignments equal where the router's k-th and (k+1)-th probabilities
+   differ by more than 1e-5, outputs within 2e-2 * max|CPU|, the dropped
+   share.  Each part's seconds and the phase's peak bytes.  Several cards
+   are never visible here (NCCL refuses two ranks on one card): the
+   multi-rank mesh is held on the CPU by ``tests/test_torch_mesh.py``.
 3. ``kernel_vs_plain``  ``lock_sim_block`` against ``lock_sim_block_ref``,
    both on the card, chained from the engine's initial state for 256 steps
    over the closed conformance matrix (every policy id x workload x fault,
@@ -2330,7 +2363,9 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
     max_seq 2048, 16 requests of 128-1024 prompt tokens, 32 new tokens
     each.  Each prefill must launch K5 once per attention layer, K6 once
     per rwkv6 layer, K7 once per mamba layer and K8 :func:`k8_per_forward`
-    times, and each decode step K6 and K8 alike and K7 never."""
+    times, and each decode step K6 and K8 alike and K7 never.  The idle
+    share comes from a second, traced pass of the same traffic.  The
+    parameter count must equal ``models.param_count``."""
     from repro_torch.configs import base as CB
     from repro_torch.launch import serve
     argv = ["--arch", arch] + SERVE_ARGV[2:]
@@ -2389,6 +2424,11 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
             fail(f"{phase}: request {r.rid} generated {r.generated}")
     prefill_ms = [t * 1e3 for t in engine.prefill_seconds]
     step_ms = [t * 1e3 for t in engine.step_seconds]
+    from repro_torch import models
+    n_params = sum(p.numel() for p in engine.params.parameters())
+    if n_params != models.param_count(cfg):
+        fail(f"{phase}: {n_params} parameters, param_count "
+             f"{models.param_count(cfg)}")
     n = mixer_counts(cfg)
     per_forward = k8_per_forward(cfg)
     if (len(prefill_ms) != args.requests
@@ -2414,7 +2454,7 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     emit({"phase": phase, "arch": cfg.name,
           "layers": cfg.num_layers, "dtype": cfg.dtype,
-          "params": sum(p.numel() for p in engine.params.parameters()),
+          "params": n_params,
           "policy": args.policy, "slots": args.slots,
           "max_seq": args.max_seq, "requests": args.requests,
           "prompt_tokens": prompt_tokens, "generated_tokens": tokens,
@@ -3623,6 +3663,510 @@ def phase_train_resume():
           "limit": RESUME_RTOL, "seconds": time.perf_counter() - t0})
 
 
+# --------------------------------------------------------------------------
+# The LM on a mesh: the mesh code at world size 1 (NCCL) on the card
+# --------------------------------------------------------------------------
+MESH_ARCH = "granite-moe-1b-a400m"
+MESH_TRAIN_STEPS = 2
+#: (a): the mesh's steps against the no-mesh steps: the loss within this
+#: relative and each parameter leaf within MESH_PARAM_TOL * max|no-mesh|.
+#: AdamW moves an element by about lr * sign(g): where g lies at the level
+#: of rounding its sign can differ between two runs that are not bit-equal
+#: (the zero-initialised norms hold nothing but such moves), so, as in
+#: tests/test_torch_train_step.py, an element may instead lie within 3 x
+#: the sum of the steps' learning rates, at most MESH_SIGN_SHARE of them.
+#: Since lr is 3e-6 and 6e-6 here, the parameters barely see the
+#: gradients: those are held on their own.  The first step's gradient of
+#: every leaf, as the step hands it to the optimizer, within MESH_GRAD_TOL
+#: x max|no-mesh| of the leaf (bf16 gradients, summed in another order),
+#: and each step's grad_norm within MESH_GNORM_RTOL relative.
+MESH_LOSS_RTOL = 1e-4
+MESH_PARAM_TOL = 1e-3
+MESH_SIGN_SHARE = 0.02
+MESH_GRAD_TOL = 2e-2
+MESH_GNORM_RTOL = 1e-3
+#: (b): the int8 step against (a)'s first no-mesh step: the reference's
+#: contract (loss and parameters within 5e-2).  Its gradients: with one
+#: pod and ``ef`` zero, the dequantized gradient plus the new residual is
+#: the step's own gradient, held to the no-mesh one as in (a); the
+#: dequantized values are whole multiples of the leaf's scale (max|g| /
+#: 127) and the residual at most half of it; grad_norm within the norm of
+#: those half-steps (plus MESH_GNORM_RTOL) of the no-mesh one.
+MESH_INT8_TOL = 5e-2
+#: (c): prefill MESH_PROMPTS x MESH_PROMPT tokens, then MESH_DECODE steps
+#: fed the no-mesh greedy tokens, the mesh run routed as the no-mesh run
+#: was (its choices replayed, the gates taken from its own router
+#: probabilities).  Where the mesh's own choice of a token differs, the
+#: choice must be a near-tie: the best expert left out beats the worst
+#: one replayed by at most MESH_ROUTE_TIE of that token's spread of
+#: probabilities (max - min).  Every row's logits within MESH_LOGIT_TOL x
+#: max|no-mesh logits| (bf16 through 24 layers; the mesh branch of decode
+#: attention keeps its scores and numerator in f32 where the no-mesh
+#: branch rounds them to bf16: ROADMAP C17) and greedy tokens equal
+#: wherever the no-mesh top-2 margin exceeds LM_MARGIN.
+MESH_PROMPTS, MESH_PROMPT, MESH_DECODE, MESH_MAX_SEQ = 4, 256, 8, 512
+MESH_LOGIT_TOL = 5e-2
+MESH_ROUTE_TIE = 5e-2
+LM_MARGIN = 1e-2
+#: (d): moe_ep on one MoE layer at full width, MESH_EP_TOKENS bf16 tokens,
+#: against the same call on the CPU: outputs within MESH_EP_TOL x
+#: max|CPU|, the kept (token, expert) assignments equal wherever the
+#: router's k-th and (k+1)-th probabilities differ by more than MOE_MARGIN.
+MESH_EP_TOKENS = 4096
+MESH_EP_TOL = 2e-2
+
+
+def mesh_counts():
+    return {"k5": LMA.launches, "k5_tc": LMA.tc_launches,
+            "k8": LMN.launches, "k6": LMW.launches, "k7": LMM.launches}
+
+
+def zero_counts():
+    LMA.launches = LMA.tc_launches = 0
+    LMW.launches = LMM.launches = LMN.launches = 0
+
+
+def stacked_params(cfg, model):
+    from repro_torch.models import convert
+    return {k: convert.stack_leaf(v).clone()
+            for k, v in convert.param_leaves(cfg, model).items()}
+
+
+def leaf_grad_excess(got, want):
+    """max|got - want| over max|want| of one gradient leaf (f32)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def mesh_train_part(cfg, mesh, batches):
+    """(a) and (b): MESH_TRAIN_STEPS steps without and with the mesh from
+    one seed, then one int8-compressed step on the mesh.  The first step's
+    gradients are read where the step makes them (``_grads_plain`` without
+    the mesh, ``_mesh_grads`` with it: reduced, and under int8 dequantized
+    beside the new residual) and held there, before the optimizer."""
+    import math
+
+    from repro_torch.launch import train as LT
+    from repro_torch.sharding import profiles
+    from repro_torch.train import TrainConfig, init_state
+    from repro_torch.train import train_step as ts
+    rules = profiles.rules_for(cfg, mesh, "train")
+    L = cfg.num_layers
+    want = {"k5": 2 * L, "k5_tc": 2 * L, "k8": (2 * L + 1) + 2 * L}
+    runs, grads = {}, {}
+    real_plain, real_mesh = ts._grads_plain, ts._mesh_grads
+
+    def plain_grads(*args, **kw):
+        res = real_plain(*args, **kw)
+        if "ref" not in grads:
+            grads["ref"] = {k: g.clone() for k, g in res[2].items()}
+        return res
+
+    def mesh_grads(*args, **kw):
+        res = real_mesh(*args, **kw)
+        if "got" not in grads:
+            grads["got"] = check_grads(res[2], res[3])
+        return res
+
+    def check_grads(got, ef):
+        """The mesh's first gradients against the no-mesh ones, and under
+        int8 the quantization's own rules."""
+        ref = grads["ref"]
+        worst, worst_ulps, worst_ef, half_sq = 0.0, 0.0, 0.0, 0.0
+        worst_leaf = None
+        for k, r in ref.items():
+            g = got[k].float()
+            # ef was zero before: g + ef is the step's own gradient
+            excess = leaf_grad_excess(g if ef is None else g + ef[k], r)
+            if excess >= worst:
+                worst, worst_leaf = excess, k
+            if ef is None:
+                continue
+            g_in = g + ef[k]
+            scale = max(float(g_in.abs().max()) / 127.0, 1e-12)
+            q = g / scale
+            worst_ulps = max(worst_ulps, float((q - q.round()).abs().max()))
+            worst_ef = max(worst_ef, float(ef[k].abs().max()) / scale)
+            half_sq += g.numel() * (scale / 2.0) ** 2
+        return {"grad_max_over_leaf_scale": worst,
+                "grad_worst_leaf": worst_leaf,
+                "deq_off_grid_steps": worst_ulps,
+                "ef_max_over_scale": worst_ef,
+                "half_step_norm": math.sqrt(half_sq)}
+
+    for name, tcfg, m, n in (
+            ("no_mesh", TrainConfig(), None, MESH_TRAIN_STEPS),
+            ("mesh", TrainConfig(), mesh, MESH_TRAIN_STEPS),
+            ("int8", TrainConfig(dp_compression="int8"), mesh, 1)):
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        state = init_state(cfg, tcfg, gen, DEV)
+        step = LT.build(cfg, tcfg, m, rules if m is not None else None)
+        losses, counts, after, lrs, norms = [], [], [], [], []
+        grads.pop("got", None)
+        ts._grads_plain, ts._mesh_grads = plain_grads, mesh_grads
+        try:
+            for b in batches[:n]:
+                zero_counts()
+                state, met = step(state, b)
+                losses.append(float(met["loss"]))
+                lrs.append(float(met["lr"]))
+                norms.append(float(met["grad_norm"]))
+                torch.cuda.synchronize()
+                counts.append(mesh_counts())
+                after.append(stacked_params(cfg, state["params"]))
+        finally:
+            ts._grads_plain, ts._mesh_grads = real_plain, real_mesh
+        runs[name] = {"losses": losses, "counts": counts, "lrs": lrs,
+                      "grad_norms": norms, "grads": grads.get("got"),
+                      "seconds": time.perf_counter() - t0}
+        if name == "int8":
+            runs[name]["ef_max"] = max(float(e.abs().max())
+                                       for e in state["ef"].values())
+        runs[name]["params"] = after
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        for c in counts:
+            if {k: c[k] for k in want} != want or c["k6"] or c["k7"]:
+                fail(f"mesh_world1 ({name}): launches {c}, want {want}")
+        if not all(math.isfinite(x) for x in losses + norms):
+            fail(f"mesh_world1 ({name}): losses {losses}, norms {norms}")
+    del grads["ref"]
+    ref, got = runs["no_mesh"], runs["mesh"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                      ref["losses"]))
+    gnorm_rel = max(abs(a - b) / b for a, b in zip(got["grad_norms"],
+                                                  ref["grad_norms"]))
+    param_rel, bit_equal, loose, total = 0.0, True, 0, 0
+    for i, (g, r) in enumerate(zip(got["params"], ref["params"])):
+        lr_budget = 3.0 * sum(ref["lrs"][:i + 1])
+        for k, t in r.items():
+            d = (g[k].float() - t.float()).abs()
+            over = d > MESH_PARAM_TOL * float(t.float().abs().max())
+            if bool((d[over] > lr_budget).any()):
+                fail(f"mesh_world1 (a): step {i} leaf {k}: max|d| "
+                     f"{float(d.max())}, scale {float(t.abs().max())}")
+            loose += int(over.sum())
+            total += d.numel()
+            param_rel = max(param_rel, float(d.max()) / max(
+                float(t.float().abs().max()), 1e-30))
+            bit_equal = bit_equal and torch.equal(g[k], t)
+    grad_rel = got["grads"]["grad_max_over_leaf_scale"]
+    if not (loss_rel <= MESH_LOSS_RTOL and loose <= MESH_SIGN_SHARE * total
+            and grad_rel <= MESH_GRAD_TOL and gnorm_rel <= MESH_GNORM_RTOL):
+        fail(f"mesh_world1 (a): loss rel {loss_rel}, {loose} of {total} "
+             f"elements past {MESH_PARAM_TOL} of their leaf's scale, "
+             f"gradients {grad_rel} of their leaf's scale, grad_norm rel "
+             f"{gnorm_rel}")
+    i8 = runs["int8"]
+    q = i8["grads"]
+    int8_loss = abs(i8["losses"][0] - ref["losses"][0])
+    int8_param = max(float((i8["params"][0][k].float() - t.float()).abs()
+                           .max()) for k, t in ref["params"][0].items())
+    int8_gnorm = abs(i8["grad_norms"][0] - ref["grad_norms"][0])
+    gnorm_bound = q["half_step_norm"] + MESH_GNORM_RTOL * ref["grad_norms"][0]
+    if not (int8_loss < MESH_INT8_TOL and int8_param < MESH_INT8_TOL
+            and q["grad_max_over_leaf_scale"] <= MESH_GRAD_TOL
+            and q["deq_off_grid_steps"] <= 1e-3
+            and q["ef_max_over_scale"] <= 0.5 + 1e-3
+            and int8_gnorm <= gnorm_bound):
+        fail(f"mesh_world1 (b): loss {int8_loss}, params {int8_param}, "
+             f"gradients {q}, grad_norm |d| {int8_gnorm} (bound "
+             f"{gnorm_bound})")
+    return {"train": {
+        "steps": MESH_TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "rules": rules.__dict__,
+        "losses_no_mesh": ref["losses"], "losses_mesh": got["losses"],
+        "loss_max_rel": loss_rel, "param_max_over_scale": param_rel,
+        "elements_within_lr_only": loose, "elements": total,
+        "grad_norms_no_mesh": ref["grad_norms"],
+        "grad_norms_mesh": got["grad_norms"], "grad_norm_max_rel": gnorm_rel,
+        "grad_max_over_leaf_scale": grad_rel,
+        "grad_worst_leaf": got["grads"]["grad_worst_leaf"],
+        "grad_tol": MESH_GRAD_TOL,
+        "lrs": ref["lrs"], "bit_equal": bit_equal,
+        "launches_per_step": got["counts"][0],
+        "seconds_no_mesh": ref["seconds"], "seconds_mesh": got["seconds"]},
+        "int8": {"loss": i8["losses"][0], "loss_abs_diff": int8_loss,
+                 "param_max_abs_diff": int8_param,
+                 "grad_norm": i8["grad_norms"][0],
+                 "grad_norm_abs_diff": int8_gnorm,
+                 "grad_norm_bound": gnorm_bound, **q,
+                 "ef_max_abs": i8["ef_max"], "seconds": i8["seconds"]},
+        "launches": {k: sum(c[k] for c in got["counts"])
+                     for k in ("k5", "k5_tc", "k8")}}
+
+
+def mesh_decode_part(cfg, mesh, prompts):
+    """(c): prefill and MESH_DECODE greedy steps under the serve rules on
+    the mesh against the same run without it, both fed the no-mesh
+    tokens.  The two runs round bf16 differently (the two attention
+    branches), so a near-tie in the router could send a token to another
+    expert and move its logits by a whole expert's share: the no-mesh
+    run's choices are recorded call by call and replayed in the mesh run,
+    whose gates come from its own router probabilities.  Where the mesh's
+    own choice would differ, the replayed one must be a near-tie
+    (MESH_ROUTE_TIE)."""
+    from repro_torch import models
+    from repro_torch.models import moe
+    from repro_torch.sharding import comm, layout, profiles
+    from repro_torch.sharding import specs as sh
+    rules = profiles.rules_for(cfg, mesh, "decode")
+    B, S = prompts.shape
+    L = cfg.num_layers
+    out = {}
+    feed = None
+    real_route = moe.route
+    recorded, replay = [], {"calls": 0, "tokens": 0, "rerouted": 0,
+                            "worst_tie": 0.0}
+
+    def record(mcfg, router_w, tokens):
+        res = real_route(mcfg, router_w, tokens)
+        recorded.append(res[1].clone())
+        return res
+
+    def replayed(mcfg, router_w, tokens):
+        _, mine, probs = real_route(mcfg, router_w, tokens)
+        eidx = recorded[replay["calls"]]
+        replay["calls"] += 1
+        differs = (torch.sort(mine, -1).values
+                   != torch.sort(eidx, -1).values).any(-1)
+        if bool(differs.any()):
+            p, chosen = probs[differs], eidx[differs]
+            worst_in = p.gather(-1, chosen).min(-1).values
+            best_out = p.scatter(-1, chosen, -1.0).max(-1).values
+            spread = p.max(-1).values - p.min(-1).values
+            tie = float(((best_out - worst_in)
+                         / torch.clamp_min(spread, 1e-30)).max())
+            replay["worst_tie"] = max(replay["worst_tie"], tie)
+        replay["tokens"] += mine.shape[0]
+        replay["rerouted"] += int(differs.sum())
+        gates = probs.gather(-1, eidx)
+        return (gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9),
+                eidx, probs)
+
+    for name in ("no_mesh", "mesh"):
+        t0 = time.perf_counter()
+        model = models.init_params(
+            cfg, torch.Generator(device=DEV).manual_seed(1), DEV)
+        ctx = contextlib.ExitStack()
+        if name == "mesh":
+            ctx.enter_context(sh.use_mesh(mesh, rules))
+            layout.shard_model(cfg, model, mesh, rules)
+            ctx.enter_context(comm.batch(comm.batch_axes_for(B)))
+        moe.route = record if name == "no_mesh" else replayed
+        try:
+            with ctx, torch.no_grad():
+                zero_counts()
+                logits, pre = models.prefill(cfg, model,
+                                             {"tokens": prompts})
+                torch.cuda.synchronize()
+                counts = [mesh_counts()]
+                cache = models.init_cache(cfg, B, MESH_MAX_SEQ, DEV)
+                for c, p in zip(cache["layers"], pre["layers"]):
+                    for k in ("k", "v"):
+                        c[k][:, :, :S] = p[k]
+                cache["len"].copy_(pre["len"])
+                seen = [logits.float()]
+                if feed is None:
+                    feed = [logits.argmax(-1)]
+                for t in range(MESH_DECODE):
+                    zero_counts()
+                    logits, cache = models.decode_step(cfg, model, cache,
+                                                       feed[t][:, None])
+                    torch.cuda.synchronize()
+                    counts.append(mesh_counts())
+                    seen.append(logits.float())
+                    if name == "no_mesh":
+                        feed.append(logits.argmax(-1))
+        finally:
+            moe.route = real_route
+        out[name] = {"logits": torch.stack(seen), "counts": counts,
+                     "seconds": time.perf_counter() - t0}
+        del model, cache, pre
+        gc.collect()
+        torch.cuda.empty_cache()
+        want_pre = {"k5": L, "k5_tc": L, "k8": 2 * L + 1, "k6": 0, "k7": 0}
+        want_dec = {"k5": 0, "k5_tc": 0, "k8": 2 * L + 1, "k6": 0, "k7": 0}
+        if counts[0] != want_pre or any(c != want_dec for c in counts[1:]):
+            fail(f"mesh_world1 (c, {name}): launches {counts}")
+    ref, got = out["no_mesh"]["logits"], out["mesh"]["logits"]
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > LM_MARGIN     # (forward, row)
+    agree = bool((got.argmax(-1) == ref.argmax(-1))[clear].all())
+    if not (err <= MESH_LOGIT_TOL * scale and agree
+            and bool(torch.isfinite(got).all())
+            and replay["calls"] == len(recorded) == L * (MESH_DECODE + 1)
+            and replay["worst_tie"] <= MESH_ROUTE_TIE):
+        fail(f"mesh_world1 (c): logits max|d| {err} (scale {scale}), "
+             f"greedy agree {agree}, routing replayed {replay} of "
+             f"{len(recorded)} calls")
+    mesh_counts_sum = {k: sum(c[k] for c in out["mesh"]["counts"])
+                       for k in ("k5", "k5_tc", "k8")}
+    return {"decode": {
+        "rules": rules.__dict__, "prompts": B, "prompt_tokens": S,
+        "decode_steps": MESH_DECODE, "max_seq": MESH_MAX_SEQ,
+        "forwards_rows": clear.numel(),
+        "route_calls_replayed": replay["calls"],
+        "routed_tokens": replay["tokens"],
+        "tokens_the_mesh_would_reroute": replay["rerouted"],
+        "worst_reroute_tie_over_spread": replay["worst_tie"],
+        "route_tie_limit": MESH_ROUTE_TIE,
+        "logits_max_abs_diff": err,
+        "logits_scale": scale, "logit_tol_over_scale": MESH_LOGIT_TOL,
+        "greedy_compared": int(clear.sum()), "greedy_equal": agree,
+        "seconds_no_mesh": out["no_mesh"]["seconds"],
+        "seconds_mesh": out["mesh"]["seconds"]},
+        "launches": mesh_counts_sum}
+
+
+def mesh_ep_part(cfg, mesh):
+    """(d): moe_ep on one MoE layer at full width on the card against the
+    same call on the CPU (gloo), both at world size 1."""
+    from repro_torch.models import moe
+    from repro_torch.sharding import comm, layout, profiles
+    from repro_torch.sharding import specs as sh
+    t0 = time.perf_counter()
+    rules = profiles.rules_for(cfg, mesh, "train")
+    mcfg, D = cfg.moe, cfg.d_model
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    w = moe.init_moe(gen, mcfg, D, torch.bfloat16, DEV)
+    x = torch.randn((2, MESH_EP_TOKENS // 2, D), generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    specs = sh.param_specs({f"stack/0/moe/{k}": (1,) + tuple(v.shape)
+                            for k, v in w.items()}, mesh, rules)
+    res = {}
+    for side, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        params = {k: layout.tagged(sh.shard_leaf(
+            v.to(dev), specs[f"stack/0/moe/{k}"][1:], mesh),
+            specs[f"stack/0/moe/{k}"][1:]) for k, v in w.items()}
+        with sh.use_mesh(mesh, rules), torch.no_grad():
+            split = comm.batch_axes_for(x.shape[0])
+            with comm.batch(split):
+                xl = comm.local_rows(x.to(dev), split)
+                t1 = time.perf_counter()
+                y, aux = moe.moe_ep(mcfg, params, xl, cfg.act)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t1
+                tokens = xl.reshape(-1, D)
+                gates, eidx, probs = moe.route(mcfg, params["router"],
+                                               tokens)
+                cap = moe.capacity_of(mcfg, tokens.shape[0])
+                keep = moe._dispatch_local(mcfg, tokens, gates, eidx,
+                                           cap)[3].reshape(eidx.shape)
+        res[side] = {"y": y.float().cpu(), "aux": float(aux),
+                         "kept": torch.where(keep, eidx, -1).cpu(),
+                         "probs": probs.cpu(), "capacity": cap,
+                         "seconds": seconds}
+    g, c = res["card"], res["cpu"]
+    top = torch.topk(c["probs"], mcfg.top_k + 1, dim=-1).values
+    clear = (top[:, -2] - top[:, -1]) > MOE_MARGIN
+    kept_equal = bool((g["kept"] == c["kept"])[clear].all())
+    scale = float(c["y"].abs().max())
+    err = float((g["y"] - c["y"]).abs().max())
+    dropped = float((c["kept"] < 0).float().mean())
+    if not (kept_equal and err <= MESH_EP_TOL * scale):
+        fail(f"mesh_world1 (d): kept equal {kept_equal}, max|d| {err} "
+             f"(scale {scale})")
+    return {"moe_ep": {
+        "tokens": MESH_EP_TOKENS, "experts": mcfg.num_experts,
+        "top_k": mcfg.top_k, "capacity_factor": mcfg.capacity_factor,
+        "capacity": g["capacity"], "dropped_share": dropped,
+        "dropped_share_card": float((g["kept"] < 0).float().mean()),
+        "tokens_compared": int(clear.sum()), "kept_equal": kept_equal,
+        "max_abs_err": err, "scale": scale, "aux_card": g["aux"],
+        "aux_cpu": c["aux"], "card_seconds": g["seconds"],
+        "cpu_seconds": c["seconds"],
+        "seconds": time.perf_counter() - t0}}
+
+
+def phase_mesh_world1():
+    """The mesh code on one card: a process group of world size 1 (NCCL
+    for CUDA tensors, gloo for CPU ones; a file store under a temporary
+    directory, no port) and ``make_test_mesh(1, 1, pod=1)``; granite-moe
+    at full width and depth in bf16.  (a) MESH_TRAIN_STEPS steps of
+    ``launch.train.build(cfg, tcfg, mesh, rules_for(..., "train"))`` at
+    TRAIN_BATCH x TRAIN_SEQ tokens (remat full) against the same steps
+    without the mesh from the same seed: loss within MESH_LOSS_RTOL
+    relative, each parameter leaf within MESH_PARAM_TOL x max|no-mesh|
+    (or 3 x the summed learning rates, at most MESH_SIGN_SHARE of the
+    elements), the first step's gradients within MESH_GRAD_TOL x
+    max|no-mesh| of each leaf and each step's grad_norm within
+    MESH_GNORM_RTOL, whether the runs are bit-equal recorded; K5 2 x
+    layers and K8 4 x layers + 1 a step, all K5 on the tensor cores.
+    (b) one int8-compressed step (``dp_compression="int8"``): loss and
+    parameters within MESH_INT8_TOL of (a)'s first no-mesh step; the
+    dequantized gradient plus the residual within MESH_GRAD_TOL of the
+    no-mesh gradient, the dequantized values on the leaf's grid of
+    max|g| / 127, the residual at most half a step, grad_norm within the
+    half-steps' norm; the largest residual of ``ef``.  (c) prefill and
+    MESH_DECODE decode steps for MESH_PROMPTS prompts of MESH_PROMPT
+    tokens under ``rules_for(..., "decode")`` (the mesh branches of
+    ``decode_attention_cp`` and ``moe_decode``) against the same run
+    without the mesh, both fed the no-mesh greedy tokens and routed as
+    the no-mesh run was (where the mesh's own routing differs, a near-tie
+    within MESH_ROUTE_TIE): every row's logits within MESH_LOGIT_TOL x
+    max|no-mesh|, greedy tokens equal where the no-mesh top-2 margin
+    exceeds LM_MARGIN; K5 layers and K8 2 x layers + 1 a prefill, K8 2 x
+    layers + 1 and no K5 a decode step.
+    (d) ``moe_ep`` on one MoE layer (MESH_EP_TOKENS bf16 tokens, E 32, top
+    8, capacity factor 1.25) on the card against the CPU: kept assignments
+    equal where the router gap exceeds MOE_MARGIN, outputs within
+    MESH_EP_TOL x max|CPU|, the dropped share.  Each part's seconds, the
+    phase's peak bytes."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import base as CB
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.launch.mesh import make_test_mesh
+    t0 = time.perf_counter()
+    cfg = CB.get_config(MESH_ARCH)
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH))
+    batches = [corpus.batch_at(i) for i in range(MESH_TRAIN_STEPS)]
+    prompts = torch.randint(0, cfg.vocab_size, (MESH_PROMPTS, MESH_PROMPT),
+                            generator=torch.Generator().manual_seed(4)).to(
+        DEV)
+    tmp = tempfile.mkdtemp(prefix="mesh_world1_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1)
+    try:
+        t1 = time.perf_counter()
+        mesh = make_test_mesh(1, 1, pod=1)
+        mesh_s = time.perf_counter() - t1
+        train = mesh_train_part(cfg, mesh, batches)
+        decode = mesh_decode_part(cfg, mesh, prompts)
+        ep = mesh_ep_part(cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: train["launches"][k] + decode["launches"][k]
+                for k in ("k5", "k5_tc", "k8")}
+    emit({"phase": "mesh_world1", "arch": MESH_ARCH, "mesh": mesh.shape,
+          "backend": "cpu:gloo,cuda:nccl", "world_size": 1,
+          "mesh_seconds": mesh_s, **{k: v for k, v in train.items()
+                                     if k != "launches"},
+          **{k: v for k, v in decode.items() if k != "launches"}, **ep,
+          "launches": launches, "peak_bytes": peak,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def mamba_entries(serve_launches, scan_err):
     """K7 at one prefill layer of jamba-1.5-large (B 1, T 1024, d_in
     16 384, N 16), f32: device ms, with-host ms, plain ms, the bound, the
@@ -4071,6 +4615,8 @@ def main():
     phase_moe_lm_vs_plain()
     jamba_launches = phase_serve_at_size("serve_jamba_at_size", JAMBA,
                                          JAMBA_LAYERS)
+    granite_launches = phase_serve_at_size("serve_granite_at_size",
+                                           MESH_ARCH)
     phase_whisper_lm_vs_plain()
     whisper_launches = phase_serve_whisper_at_size()
     t_train = time.perf_counter()
@@ -4079,6 +4625,7 @@ def main():
     train_launches = phase_train_at_size()
     phase_train_resume()
     emit({"phase": "training", "seconds": time.perf_counter() - t_train})
+    mesh_launches = phase_mesh_world1()
     max_abs_err = phase_kernel_vs_plain()
     open_abs_err = phase_open_kernel_vs_plain()
     step_abs_err = phase_step_kernels_vs_plain()
@@ -4116,6 +4663,12 @@ def main():
             total, per = train_keys[entry["name"]]
             entry["train_launches"] = train_launches[total]
             entry["train_launches_per_step"] = train_launches[per]
+            # granite-moe: served at size, and on the mesh at world size 1
+            k = total
+            entry["granite_launches"] = (
+                granite_launches[k] if k == "k5" else
+                granite_launches["k8_prefill"] + granite_launches["k8_decode"])
+            entry["mesh_launches"] = mesh_launches[k]
         elif entry["name"] in ("rwkv6_scan", "mamba_scan"):
             entry["train_launches"] = train_lm_launches[
                 "k6" if entry["name"] == "rwkv6_scan" else "k7"]

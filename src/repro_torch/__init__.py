@@ -20,7 +20,12 @@ and ``numpy`` only, and nothing of ``repro``.  Ported so far:
   PrefetchLoader`` and ``repro_torch.runtime.HeartbeatBoard`` around
   ``repro_torch.train.make_train_step`` over ``repro_torch.models.
   loss_fn``), through the same kernels as autograd functions whose
-  backwards are tensor code beside them.
+  backwards are tensor code beside them;
+* the mesh path over ``torch.distributed`` (``repro_torch.sharding``: the
+  reference's specs and profiles, each rank's blocks, the collectives;
+  ``repro_torch.launch.mesh``): the decoder-only attention stacks with
+  dense or expert-parallel MoE FFNs trained sharded (TP, FSDP, DP; the
+  int8-compressed cross-pod step) and decoded context-parallel.
 
 Entry points run on the card (``device=None``) and raise without one; pass
 ``device="cpu"`` for the plain PyTorch versions.

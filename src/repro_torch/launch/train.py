@@ -12,8 +12,16 @@ The loop is the reference's: the prefetch depth self-tunes (the
 checkpoints are async + atomic (the port's ``CheckpointManager``), a
 heartbeat board is kept per step, and ``--fail-at`` stops the run after
 that step to show that a rerun resumes from the last checkpoint.  The
-train step runs eagerly (no ``jax.jit`` counterpart); the reference's
-production mesh (``--mesh``) raises (ROADMAP.md A7, S5: n/a on 1xH100).
+train step runs eagerly (no ``jax.jit`` counterpart).
+
+``--mesh`` (``use_mesh_flag``) trains on the reference's production mesh
+(:func:`repro_torch.launch.mesh.make_production_mesh`: 16 x 16 ranks):
+the process group must already hold 256 ranks (the CLI initialises it
+from torchrun's environment where that is set); any other world raises
+``ValueError``.  Under torchrun each rank takes the card of its
+``LOCAL_RANK`` before it joins the group, holds its blocks of the state
+there (:func:`rank_device`), and writes and restores its own checkpoint
+under ``<ckpt-dir>/rank<r>``.
 
 A checkpoint holds ``{"params": {the reference's leaf path: tensor}, "opt":
 the optimizer's state, "step"}`` (:func:`checkpoint_tree`): the
@@ -24,10 +32,12 @@ tensors stacked over the periods as the reference stacks them.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import base as cbase
@@ -36,17 +46,33 @@ from repro_torch.data import DataConfig, PrefetchLoader, SyntheticCorpus
 from repro_torch.device import resolve_device
 from repro_torch.models import convert
 from repro_torch.runtime import HeartbeatBoard, StragglerMonitor
+from repro_torch.sharding import comm, layout, profiles
+from repro_torch.sharding import specs as sh
 from repro_torch.train import TrainConfig, init_state, make_train_step
-
-_NO_MESH = ("--mesh builds the reference's production mesh, which needs a "
-            "pod of devices (ROADMAP.md A7, S5: n/a on 1xH100)")
 
 
 def build(cfg, tcfg, mesh=None, rules=None):
-    """The train step, run eagerly.  A mesh raises ``NotImplementedError``."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(_NO_MESH)
-    return make_train_step(cfg, tcfg)
+    """The train step, run eagerly.  With a mesh: the step under
+    ``use_mesh(mesh, rules)`` (default rules: the train profile); a state
+    of global tensors is cut into the rank's blocks on its first call (as
+    the reference's jit reshards its state)."""
+    step_fn = make_train_step(cfg, tcfg)
+    if mesh is None:
+        return step_fn
+    if rules is None:
+        rules = profiles.rules_for(cfg, mesh, "train")
+
+    def wrapped(state, batch):
+        with sh.use_mesh(mesh, rules):
+            if not _is_sharded(state):
+                state = layout.shard_state(cfg, state, mesh, rules)
+            return step_fn(state, batch)
+
+    return wrapped
+
+
+def _is_sharded(state) -> bool:
+    return any(hasattr(p, comm.SPEC) for p in state["params"].parameters())
 
 
 def checkpoint_tree(cfg, state) -> dict:
@@ -81,6 +107,16 @@ def restore(cfg, state, mgr: CheckpointManager):
     return step, state
 
 
+def rank_device(device=None) -> torch.device:
+    """The device this rank trains on: :func:`resolve_device`'s, with the
+    card named (``cuda`` -> ``cuda:<current>``, the card that
+    ``torch.cuda.set_device`` made current)."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def train_loop(cfg, tcfg, steps: int, batch: int, seq: int,
                ckpt_dir: str | None, ckpt_every: int = 20,
                fail_at: int | None = None, host_id: int = 0,
@@ -93,10 +129,12 @@ def train_loop(cfg, tcfg, steps: int, batch: int, seq: int,
     Returns ``{"losses", "state", "loader", "monitor"}`` (the loader's
     ``stats`` and the monitor's report), or ``{"died_at", "losses"}``
     after ``fail_at``."""
+    mesh = None
     if use_mesh_flag:
-        raise NotImplementedError(_NO_MESH)
-    device = resolve_device(device)
-    step_fn = build(cfg, tcfg)
+        from repro_torch.launch.mesh import make_production_mesh
+        mesh = make_production_mesh()
+    device = rank_device(device)
+    step_fn = build(cfg, tcfg, mesh)
 
     corpus = SyntheticCorpus(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
@@ -104,10 +142,16 @@ def train_loop(cfg, tcfg, steps: int, batch: int, seq: int,
     loader = PrefetchLoader(corpus, workers=2)
     board = HeartbeatBoard(n_hosts=1)
     monitor = StragglerMonitor(board, dead_after_s=60.0)
+    if ckpt_dir and mesh is not None:
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{dist.get_rank():05d}")
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
 
     gen = torch.Generator(device=device).manual_seed(tcfg.seed)
     state = init_state(cfg, tcfg, gen, device)
+    if mesh is not None:
+        rules = profiles.rules_for(cfg, mesh, "train")
+        with sh.use_mesh(mesh, rules):
+            state = layout.shard_state(cfg, state, mesh, rules)
     start = 0
     if mgr is not None:
         got, state = restore(cfg, state, mgr)
@@ -170,7 +214,8 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--fail-at", type=int, default=None)
     ap.add_argument("--mesh", action="store_true",
-                    help="the production mesh (a pod; raises on one card)")
+                    help="the production mesh: a world of 256 ranks "
+                         "(torchrun's environment), else ValueError")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     return ap.parse_args(argv)
@@ -178,6 +223,12 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.mesh and "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        # torchrun starts a rank a card: take it before NCCL sees the group
+        if ("LOCAL_RANK" in os.environ
+                and resolve_device(args.device).type == "cuda"):
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        dist.init_process_group(init_method="env://")
     cfg = cbase.get_config(args.arch)
     if args.tiny:
         cfg = catalog.tiny(cfg)

@@ -18,6 +18,17 @@ that decode reads k as a plain batched-matrix operand;
 :mod:`repro_torch.models.convert` maps it to and from the reference's
 (B, Smax, KV, hd).
 
+* **Under a mesh** (:func:`repro_torch.sharding.specs.use_mesh`) prefill
+  and training attend on the rank's heads: q / k / v column-parallel over
+  ``heads`` (K5 on the local heads), ``wo`` row-parallel and summed over
+  the axis.  Where the kv heads do not split with the query heads, k / v
+  are computed whole and each rank takes its query heads' groups.  Decode
+  is the reference's mesh branch of :func:`decode_attention_cp`: the
+  cache is split over ``kvseq``; the rank writes the new token's k / v
+  only where its shard owns the slot, takes a local masked max, and
+  combines max, denominator and numerator over the ``kvseq`` axes, never
+  expanding the GQA groups.
+
 * **Cross-attention** (:func:`cross_attention`, the encoder-decoder
   stacks) is plain tensor code, as the reference's ``attend_dense`` is: a
   non-causal softmax over the projected encoder positions, scores in f32.
@@ -35,6 +46,7 @@ import torch
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels import ops
+from repro_torch.sharding import comm
 
 from .layers import apply_rope, fan_in_init, rmsnorm, zeros
 
@@ -71,16 +83,21 @@ def _project(x, w):
 
 
 def _out_project(acfg: AttentionConfig, params, out, dtype):
-    """out (B, S, H, hd) -> (B, S, D) through wo (+ bo)."""
-    H, hd, D = params["wo"].shape
-    y = out.to(dtype).flatten(-2) @ params["wo"].reshape(H * hd, D)
+    """out (B, S, H, hd) -> (B, S, D) through wo (+ bo); under a mesh
+    ``out`` holds the rank's heads and the products are summed over the
+    axes that split them."""
+    wo = comm.weight(params["wo"])
+    H, hd, D = wo.shape
+    y = out.to(dtype).flatten(-2) @ wo.reshape(H * hd, D)
+    y = comm.reduce(y, comm.split_axes(params["wo"], 0))
     if acfg.out_bias:
         y = y + params["bo"]
     return y
 
 
 def _q(acfg: AttentionConfig, params, x, positions, rope_theta, norm_eps):
-    q = _project(x, params["wq"])
+    heads = comm.split_axes(params["wq"], 1)
+    q = _project(comm.copy(x, heads), comm.weight(params["wq"]))
     if acfg.qkv_bias:
         q = q + params["bq"]
     if acfg.qk_norm:
@@ -91,8 +108,10 @@ def _q(acfg: AttentionConfig, params, x, positions, rope_theta, norm_eps):
 
 
 def _kv(acfg: AttentionConfig, params, x, positions, rope_theta, norm_eps):
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    kvheads = comm.split_axes(params["wk"], 1)
+    xk = comm.copy(x, kvheads)
+    k = _project(xk, comm.weight(params["wk"]))
+    v = _project(xk, comm.weight(params["wv"]))
     if acfg.qkv_bias:
         k, v = k + params["bk"], v + params["bv"]
     if acfg.qk_norm:
@@ -104,10 +123,24 @@ def _kv(acfg: AttentionConfig, params, x, positions, rope_theta, norm_eps):
 
 def qkv_project(acfg: AttentionConfig, params, x, positions, rope_theta,
                 norm_eps: float = 1e-6):
-    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, KV, hd), rope applied."""
+    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, KV, hd), rope applied.
+    Under a mesh: the rank's query heads and kv heads (all kv heads where
+    they do not split)."""
     q = _q(acfg, params, x, positions, rope_theta, norm_eps)
     k, v = _kv(acfg, params, x, positions, rope_theta, norm_eps)
     return q, k, v
+
+
+def _kv_for_heads(acfg: AttentionConfig, params, k, v):
+    """The k / v that the rank's query heads read: as they are, unless the
+    query heads split and the kv heads do not; then each rank takes its
+    query heads' groups of the whole k / v."""
+    heads = comm.split_axes(params["wq"], 1)
+    if not heads or comm.split_axes(params["wk"], 1):
+        return k, v
+    g = acfg.num_heads // acfg.num_kv_heads
+    return (comm.split(t.repeat_interleave(g, dim=2), 2, heads)
+            for t in (k, v))
 
 
 def _softcap(scores, cap: float):
@@ -153,16 +186,20 @@ def self_attention(acfg: AttentionConfig, params, x, positions, window: int,
     """Prefill self-attention.  x: (B, S, D); positions: (S,).  Returns
     (y (B, S, D), (k, v) each (B, S, KV, hd))."""
     q, k, v = qkv_project(acfg, params, x, positions, rope_theta, norm_eps)
-    out = ops.attention(q, k, v, causal=acfg.causal, window=window,
+    ka, va = _kv_for_heads(acfg, params, k, v)
+    out = ops.attention(q, ka, va, causal=acfg.causal, window=window,
                         softcap=acfg.logit_softcap)
     return _out_project(acfg, params, out, x.dtype), (k, v)
 
 
 def decode_project_kv(acfg: AttentionConfig, params, x, cache_len,
                       rope_theta, norm_eps: float = 1e-6):
-    """Project the new token's k/v (rope at position cache_len - 1)."""
+    """Project the new token's k/v (rope at position cache_len - 1); under
+    a mesh every kv head (the cache holds them all)."""
     positions = (cache_len - 1)[:, None]
-    return _kv(acfg, params, x, positions, rope_theta, norm_eps)
+    k, v = _kv(acfg, params, x, positions, rope_theta, norm_eps)
+    kvheads = comm.split_axes(params["wk"], 1)
+    return comm.gather(k, 2, kvheads), comm.gather(v, 2, kvheads)
 
 
 def decode_attention(acfg: AttentionConfig, params, x, cache_k, cache_v,
@@ -183,7 +220,12 @@ def decode_attention_cp(acfg: AttentionConfig, params, x, cache_k, cache_v,
     """The reference's no-mesh branch: write the new token's k/v at
     ``cache_len - 1`` of each sequence (in place; a sequence whose cache is
     full writes nothing, as the reference's one-hot write), then attend.
+    Under a mesh, the mesh branch (:func:`_decode_attention_mesh`).
     Returns (y, cache_k, cache_v)."""
+    if comm.active():
+        return _decode_attention_mesh(acfg, params, x, cache_k, cache_v,
+                                      k_new, v_new, cache_len, window,
+                                      rope_theta, norm_eps)
     B, Smax = cache_k.shape[0], cache_k.shape[2]
     idx = (cache_len - 1).long()
     fits = (idx < Smax)[:, None, None]
@@ -196,6 +238,57 @@ def decode_attention_cp(acfg: AttentionConfig, params, x, cache_k, cache_v,
     y = decode_attention(acfg, params, x, cache_k, cache_v, cache_len,
                          window, rope_theta, norm_eps)
     return y, cache_k, cache_v
+
+
+def _decode_attention_mesh(acfg: AttentionConfig, params, x, cache_k,
+                           cache_v, k_new, v_new, cache_len, window: int,
+                           rope_theta, norm_eps):
+    """Context-parallel flash-decode on this rank's block of the cache
+    (B, KV, S_loc, hd), its sequence split over the ``kvseq`` axes its
+    spec names: the new token's k / v written only by the shard that owns
+    the slot (in place), a local masked partial softmax, then the max, the
+    denominator and the numerator combined over those axes.  Scores and
+    the numerator accumulate in f32 (the reference's
+    ``preferred_element_type``); the groups are never expanded."""
+    spec = comm.spec_of(cache_k)
+    if spec is not None and spec[1] is not None:
+        raise NotImplementedError(
+            f"decode on a cache split over its kv heads ({spec[1]!r}): the "
+            f"mesh branch splits the cache over kvseq (ROADMAP.md A13)")
+    kv_axes = () if spec is None else comm.entry_axes(spec[2])
+    B, KV, S_loc, hd = cache_k.shape
+    H = acfg.num_heads
+    pos = (cache_len - 1).long()
+    heads = comm.split_axes(params["wq"], 1)
+    q = comm.gather(_q(acfg, params, x, pos[:, None], rope_theta, norm_eps),
+                    2, heads)                              # (B, 1, H, hd)
+    base = comm.axes_index(kv_axes) * S_loc if kv_axes else 0
+    local = pos - base
+    fits = ((local >= 0) & (local < S_loc))[:, None, None]
+    at = local.clamp(0, S_loc - 1)
+    rows = torch.arange(B, device=x.device)
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        old = cache[rows, :, at]                              # (B, KV, hd)
+        cache[rows, :, at] = torch.where(fits, new[:, 0].to(cache.dtype),
+                                         old)
+    qg = q.reshape(B, KV, H // KV, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    s = (qg @ cache_k.float().transpose(-1, -2)) * scale   # (B, KV, g, S)
+    s = _softcap(s, acfg.logit_softcap)
+    dk = base + torch.arange(S_loc, device=x.device)[None, :]
+    dq = pos[:, None]
+    mask = (dq >= dk) & (dk < cache_len[:, None])
+    if window > 0:
+        mask = mask & (dq - dk < window)
+    s = torch.where(mask[:, None, None, :], s, _NEG_INF)
+    m = comm.all_reduce_max(s.max(dim=-1, keepdim=True).values, kv_axes)
+    p = torch.exp(s - m)
+    den = comm.reduce(p.sum(-1, keepdim=True), kv_axes)
+    num = comm.reduce(p.to(cache_v.dtype).float() @ cache_v.float(),
+                      kv_axes)                            # (B, KV, g, hd)
+    out = (num / torch.clamp_min(den, 1e-30)).reshape(B, 1, H, hd)
+    out = comm.split(out.to(q.dtype), 2, heads)
+    return _out_project(acfg, params, out, x.dtype), cache_k, cache_v
 
 
 def _grouped_attention(acfg: AttentionConfig, q, k, v):

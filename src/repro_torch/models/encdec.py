@@ -21,6 +21,9 @@ and ``{"enc_k", "enc_v"}`` (B, KV, S_enc, hd), the cross-attention's
 projection of the encoder's output, read only.
 :mod:`repro_torch.models.convert` maps it to the reference's stacked
 ``{"k", "v", "enc_kv", "len"}``.
+
+The stacks do not run on a mesh: every entry point raises
+``NotImplementedError`` under ``specs.use_mesh`` (ROADMAP.md A13).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import comm
 
 from . import attention as attn
 from .layers import (chunked_xent, dtype_of, embed, init_embed,
@@ -189,10 +193,18 @@ def decode_train(cfg: ModelConfig, model: EncDec, tokens, enc_out,
     return _ln(model.dec_norm, h)
 
 
+def _no_mesh() -> None:
+    if comm.active():
+        raise NotImplementedError(
+            "an encoder-decoder on a mesh: the port's mesh path carries "
+            "decoder-only stacks (ROADMAP.md A13)")
+
+
 def loss_fn(cfg: ModelConfig, model: EncDec, batch):
     """Next-token CE of the decoder over the encoded frames.  batch: frames
     (B, S_enc, D), tokens (B, S), labels (B, S), optional mask (B, S).
     Returns (loss, {"ce", "aux" = 0})."""
+    _no_mesh()
     enc_out = encode(cfg, model, batch["frames"].to(dtype_of(cfg.dtype)),
                      train=True)
     h = decode_train(cfg, model, batch["tokens"], enc_out, train=True)
@@ -209,6 +221,7 @@ def loss_fn(cfg: ModelConfig, model: EncDec, batch):
 def prefill(cfg: ModelConfig, model: EncDec, tokens, frames):
     """tokens (B, S), frames (B, S_enc, D) -> (last-token logits (B, V),
     cache at length S)."""
+    _no_mesh()
     enc_out = encode(cfg, model, frames.to(dtype_of(cfg.dtype)))
     enc_kv = project_enc_kv_stack(cfg, model, enc_out)
     B, S = tokens.shape
@@ -230,6 +243,7 @@ def prefill(cfg: ModelConfig, model: EncDec, tokens, frames):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
     """Empty decode cache: ``max_seq`` self-attention slots and the
     cross-attention's ``encoder_seq`` positions per decoder layer."""
+    _no_mesh()
     dtype = dtype_of(cfg.dtype)
     a = cfg.attention
     kv = (batch, a.num_kv_heads, max_seq, a.head_dim)
@@ -245,6 +259,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
 def decode_step(cfg: ModelConfig, model: EncDec, cache, tokens):
     """tokens (B, 1) -> (logits (B, V), cache').  The self-attention cache
     is updated in place."""
+    _no_mesh()
     new_len = cache["len"] + 1
     h = _embed_tokens(cfg, model, tokens, (new_len - 1)[:, None])
     acfg = cfg.attention

@@ -5,9 +5,16 @@ The port of ``repro/models/layers.py``: the same functions over dicts of
 tensors, in the reference's layouts and dtypes.
 Inits draw from an explicit ``torch.Generator`` (not JAX's keys: the two
 give different numbers from one seed; the tests carry JAX's parameters over
-with :func:`repro_torch.models.convert.params_from_numpy`).  The sharding
-annotations of the reference are identities without a mesh and are
-dropped.
+with :func:`repro_torch.models.convert.params_from_numpy`).
+
+Under a mesh (:func:`repro_torch.sharding.specs.use_mesh`) each rank holds
+its blocks of the weights and calls the collectives that the reference's
+sharding annotations make GSPMD insert (:mod:`repro_torch.sharding.comm`):
+the embedding and the tied unembedding split over ``vocab`` (a masked
+lookup and a sum; the loss's log-softmax by a max and a sum over the
+shards), the FFN column-parallel in and row-parallel out over ``ffn``,
+FSDP weights gathered before use, and the loss's sums combined over the
+batch's axes.  Without a mesh every collective is the identity.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rmsnorm import rmsnorm as kernel_rmsnorm
+from repro_torch.sharding import comm
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -112,17 +120,45 @@ def init_embed(gen, vocab, d_model, dtype, device, tie: bool):
     return p
 
 
+def _vocab_block(tok):
+    """(the axes that split the vocabulary of ``tok``, the first id of
+    this rank's block)."""
+    axes = comm.split_axes(tok, 0)
+    if not axes:
+        return (), 0
+    return axes, comm.axes_index(axes) * tok.shape[0]
+
+
 def embed(params, tokens, scale: bool, d_model: int):
-    x = params["tok"][tokens]
+    tok = params["tok"]
+    vocab, lo = _vocab_block(tok)
+    w = comm.weight(tok)
+    if vocab:
+        # vocab-parallel: this rank's rows, zeros elsewhere, summed
+        local = tokens - lo
+        mine = ((local >= 0) & (local < w.shape[0]))[..., None]
+        x = torch.where(mine, w[local.clamp(0, w.shape[0] - 1)], 0.0)
+        x = comm.reduce(x.to(w.dtype), vocab)
+    else:
+        x = w[tokens]
     if scale:
         x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype,
                              device=x.device)
     return x
 
 
+def _local_logits(params, x, tie: bool):
+    """(this rank's block of the logits, the axes that split the
+    vocabulary, the block's first id)."""
+    if not tie:
+        return x @ comm.weight(params["head"]), (), 0
+    vocab, lo = _vocab_block(params["tok"])
+    return comm.copy(x, vocab) @ comm.weight(params["tok"]).t(), vocab, lo
+
+
 def unembed_logits(params, x, tie: bool):
-    w = params["tok"].t() if tie else params["head"]
-    return x @ w
+    logits, vocab, _ = _local_logits(params, x, tie)
+    return comm.gather(logits, logits.ndim - 1, vocab)
 
 
 # --------------------------------------------------------------------------
@@ -131,27 +167,52 @@ def unembed_logits(params, x, tie: bool):
 # over sequence chunks under activation checkpointing keeps one chunk's
 # logits alive at a time, in the forward and in the backward.
 # --------------------------------------------------------------------------
-def _nll(logits, labels):
+def _nll(logits, labels, vocab=(), lo=0):
     """Per-position negative log-likelihood in f32; logits (..., V),
-    labels (...) integer."""
+    labels (...) integer.  With ``vocab`` axes the logits are this rank's
+    block of the vocabulary, from id ``lo``: the log-softmax combines the
+    blocks by a max and a sum over the axes."""
     lf = logits.float()
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    return torch.logsumexp(lf, dim=-1) - gold
+    if not vocab:
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+        return torch.logsumexp(lf, dim=-1) - gold
+    m = comm.all_reduce_max(lf.max(dim=-1, keepdim=True).values, vocab)
+    lse = torch.log(comm.reduce(torch.exp(lf - m).sum(-1), vocab)) \
+        + m[..., 0]
+    local = labels.long() - lo
+    mine = (local >= 0) & (local < lf.shape[-1])
+    gold = torch.gather(lf, -1, local.clamp(0, lf.shape[-1] - 1)[..., None])
+    gold = comm.reduce(torch.where(mine, gold[..., 0], 0.0), vocab)
+    return lse - gold
 
 
-def softmax_xent(logits, labels, mask=None):
+def _batch_mean(tot, cnt):
+    """The loss over the global batch: ``tot / max(cnt, 1)`` with both
+    sums combined over the batch's axes under a mesh."""
+    axes = comm.batch_reduce()
+    if axes:
+        tot = comm.reduce(tot, axes)
+        cnt = comm.all_reduce_raw(cnt, axes)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def softmax_xent(logits, labels, mask=None, vocab=(), lo=0):
     """Stable CE in f32; logits (..., V), labels (...) integer, mask (...)
     or None: the mean over the positions (the masked mean with a mask)."""
-    nll = _nll(logits, labels)
+    nll = _nll(logits, labels, vocab, lo)
     if mask is not None:
         nll = nll * mask
-        return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
+        return _batch_mean(torch.sum(nll), torch.sum(mask))
+    if comm.batch_reduce():
+        return _batch_mean(torch.sum(nll), torch.tensor(
+            float(nll.numel()), device=nll.device))
     return torch.mean(nll)
 
 
 def _chunk_nll(embed_params, tie, x, labels, mask):
     """(sum of the chunk's masked nll, sum of its mask)."""
-    nll = _nll(unembed_logits(embed_params, x, tie), labels) * mask
+    logits, vocab, lo = _local_logits(embed_params, x, tie)
+    nll = _nll(logits, labels, vocab, lo) * mask
     return torch.sum(nll), torch.sum(mask)
 
 
@@ -161,12 +222,14 @@ def chunked_xent(cfg, embed_params, x, labels, mask=None):
     chunk of ``cfg.logit_chunk`` positions runs under activation
     checkpointing, as the reference runs its chunk under
     ``jax.checkpoint``: its logits are recomputed in the backward, never
-    kept.  Unchunked where ``logit_chunk`` is 0 or does not divide S."""
+    kept.  Unchunked where ``logit_chunk`` is 0 or does not divide S.
+    Under a mesh the logits stay split over the vocabulary."""
     B, S, D = x.shape
     chunk = cfg.logit_chunk
     if chunk <= 0 or S <= chunk or S % chunk != 0:
-        logits = unembed_logits(embed_params, x, cfg.tie_embeddings)
-        return softmax_xent(logits, labels, mask)
+        logits, vocab, lo = _local_logits(embed_params, x,
+                                          cfg.tie_embeddings)
+        return softmax_xent(logits, labels, mask, vocab, lo)
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
     tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -176,7 +239,7 @@ def chunked_xent(cfg, embed_params, x, labels, mask=None):
                           x[:, c], labels[:, c], mask[:, c],
                           use_reentrant=False)
         tot, cnt = tot + t, cnt + n
-    return tot / torch.clamp_min(cnt, 1.0)
+    return _batch_mean(tot, cnt)
 
 
 # --------------------------------------------------------------------------
@@ -189,9 +252,14 @@ def init_mlp(gen, d_model, d_ff, dtype, device):
 
 
 def mlp(params, x, act: str):
-    h = x @ params["w_gate"]
-    u = x @ params["w_in"]
-    return (act_fn(act)(h) * u) @ params["w_out"]
+    """Column-parallel in, row-parallel out where ``ffn`` splits the
+    hidden dim."""
+    ffn = comm.split_axes(params["w_gate"], 1)
+    x = comm.copy(x, ffn)
+    h = x @ comm.weight(params["w_gate"])
+    u = x @ comm.weight(params["w_in"])
+    return comm.reduce((act_fn(act)(h) * u) @ comm.weight(params["w_out"]),
+                       ffn)
 
 
 # --------------------------------------------------------------------------

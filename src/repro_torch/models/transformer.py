@@ -32,6 +32,18 @@ layer's prefill entry takes ``ssm`` from the scan's own final state (the
 reference runs a second scan for it, ``_mamba_final_state``).  As in the
 reference, decode runs the rwkv channel-mix with no shift state (its token
 shift pads with zeros): ``ffn_shift`` is written, never read.
+
+Under a mesh (:func:`repro_torch.sharding.specs.use_mesh`, the parameters
+split into the rank's blocks by :mod:`repro_torch.sharding.layout`) the
+functions take and return the rank's rows of the batch; the layers call
+the collectives (:mod:`repro_torch.sharding.comm`); the MoE FFN takes
+``moe_forward``'s paths (expert-parallel in training and prefill where
+the ``model`` axis splits the experts); logits come back whole over the
+vocabulary; the cache is the rank's block under ``CACHE_RULES`` (rows
+over ``batch``, positions over ``kvseq``), its tensors carrying their
+spec.  Where ``seqcarry`` resolves, the residual stream between training
+layers is split over its sequence dim.  mamba and rwkv6 layers on a mesh
+raise (ROADMAP.md A13).
 """
 
 from __future__ import annotations
@@ -41,6 +53,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.sharding import comm
+from repro_torch.sharding import specs as sh
 
 from . import attention as attn
 from . import mamba as mam
@@ -168,18 +182,42 @@ def param_count(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------------
 # Forward (train / prefill)
 # --------------------------------------------------------------------------
+#: Where the mesh path stops: the mixers it does not carry.
+NO_MESH_MIXERS = ("mamba", "rwkv6")
+
+
+def _mesh_check(mixer: str) -> None:
+    if comm.active() and mixer in NO_MESH_MIXERS:
+        raise NotImplementedError(
+            f"a {mixer} layer on a mesh: the port's mesh path carries "
+            f"attention layers with dense or MoE FFNs (ROADMAP.md A13)")
+
+
+def _kv_entry(cfg: ModelConfig, layer: Layer, k, v):
+    """A prefill's k / v (B, S, KV, hd) as a cache entry (B, KV, S, hd);
+    under a mesh every kv head and the rank's block of the positions."""
+    k, v = (t.transpose(1, 2).contiguous() for t in (k, v))
+    if not comm.active():
+        return {"k": k, "v": v}
+    from repro_torch.sharding import layout
+    kvheads = comm.split_axes(layer.attn["wk"], 1)
+    spec = layout.prefill_kv_spec(cfg, k.shape[0], k.shape[2])
+    return {name: layout.tagged(comm.split(comm.gather(
+        t, 1, kvheads), 2, comm.entry_axes(spec[2])).contiguous(), spec)
+        for name, t in (("k", k), ("v", v))}
+
+
 def _layer(cfg: ModelConfig, layer: Layer, h, positions, collect_cache: bool,
            train: bool):
     """One layer over the whole sequence; returns (h, the MoE aux loss (0.0
     outside training or a MoE FFN), cache entry | None)."""
+    _mesh_check(layer.mixer)
     x_in = rmsnorm(h, layer.norm1, cfg.norm_eps)
     if layer.mixer == "attention":
         y, (k, v) = attn.self_attention(cfg.attention, layer.attn, x_in,
                                         positions, layer.window,
                                         layer.theta, cfg.norm_eps)
-        cache = ({"k": k.transpose(1, 2).contiguous(),
-                  "v": v.transpose(1, 2).contiguous()}
-                 if collect_cache else {})
+        cache = _kv_entry(cfg, layer, k, v) if collect_cache else {}
     elif layer.mixer == "mamba":
         y, cache = mam.mamba_forward(cfg.mamba, layer.mamba, x_in)
     else:
@@ -192,11 +230,10 @@ def _layer(cfg: ModelConfig, layer: Layer, h, positions, collect_cache: bool,
     if layer.ffn == "dense":
         h = h + mlp(layer.mlp, hn, cfg.act)
     elif layer.ffn == "moe":
-        if train:
-            y, aux = moe_mod.moe_dense(cfg.moe, layer.moe, hn, cfg.act,
-                                       with_aux=True)
-        else:
-            y = moe_mod.moe_dense(cfg.moe, layer.moe, hn, cfg.act)
+        y, a = moe_mod.moe_forward(cfg.moe, layer.moe, hn, cfg.act,
+                                   mode="train" if train else "prefill",
+                                   with_aux=train)
+        aux = a if train else aux
         h = h + y
     else:
         y, cache["ffn_shift"] = rwkv.rwkv_ffn_forward(layer.rwkvffn, hn,
@@ -212,10 +249,25 @@ def _apply_layer(cfg: ModelConfig, layer: Layer, h, positions,
     return h, cache
 
 
-def _train_layer(cfg: ModelConfig, layer: Layer, h, positions):
-    """One layer in training; returns (h, its MoE aux loss)."""
+def _train_layer(cfg: ModelConfig, layer: Layer, h, positions,
+                 carry: tuple = ()):
+    """One layer in training; returns (h, its MoE aux loss).  ``carry``:
+    the axes that split the carried residual stream's sequence dim."""
+    h = comm.gather(h, 1, carry)
     h, aux, _ = _layer(cfg, layer, h, positions, False, True)
-    return h, aux
+    return comm.split(h, 1, carry), aux
+
+
+def _carry_axes(x) -> tuple:
+    """The axes of ``seqcarry`` that split the residual stream's
+    sequence dim between training layers (none without a mesh)."""
+    if not comm.active():
+        return ()
+    B, S, D = x.shape
+    spec = sh.logical_to_spec((B * comm.axes_size(comm.batch_split()), S, D),
+                              ("batch", "seqcarry", "dmodel"),
+                              sh.current_mesh(), sh.current_rules())
+    return comm.entry_axes(spec[1])
 
 
 def forward_hidden(cfg: ModelConfig, model: Transformer, x, positions,
@@ -226,13 +278,16 @@ def forward_hidden(cfg: ModelConfig, model: Transformer, x, positions,
     h = x
     if mode == "train":
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        carry = _carry_axes(x)
+        h = comm.split(h, 1, carry)
         for layer in model.layers:
             if cfg.remat != "none":
                 h, a = checkpoint(_train_layer, cfg, layer, h, positions,
-                                  use_reentrant=False)
+                                  carry, use_reentrant=False)
             else:
-                h, a = _train_layer(cfg, layer, h, positions)
+                h, a = _train_layer(cfg, layer, h, positions, carry)
             aux = aux + a
+        h = comm.gather(h, 1, carry)
         return rmsnorm(h, model.final_norm, cfg.norm_eps), aux
     caches = []
     for layer in model.layers:
@@ -278,9 +333,17 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens):
     positions = torch.arange(S, device=x.device)
     h, caches = forward_hidden(cfg, model, x, positions, collect_cache=True)
     logits = unembed_logits(model.embed, h[:, -1], cfg.tie_embeddings)
-    return logits, {"layers": caches,
-                    "len": torch.full((B,), S, dtype=torch.int32,
-                                      device=x.device)}
+    if comm.active():
+        # ``len`` is the global batch's, split as CACHE_RULES split it
+        from repro_torch.sharding import layout
+        B *= comm.axes_size(comm.batch_split())
+        spec = layout.len_spec(B)
+        length = layout.tagged(sh.shard_leaf(torch.full(
+            (B,), S, dtype=torch.int32, device=x.device), spec,
+            sh.current_mesh()), spec)
+    else:
+        length = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return logits, {"layers": caches, "len": length}
 
 
 # --------------------------------------------------------------------------
@@ -304,7 +367,11 @@ def _cache_entry(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
-    """Empty decode cache sized for ``max_seq`` total positions."""
+    """Empty decode cache sized for ``max_seq`` total positions; under a
+    mesh the rank's blocks of it (``batch`` the global batch)."""
+    if comm.active():
+        from repro_torch.sharding import layout
+        return layout.init_cache(cfg, batch, max_seq, device)
     return {"layers": [_cache_entry(cfg, layer_spec(cfg, l), batch, max_seq,
                                     device)
                        for l in range(cfg.num_layers)],
@@ -312,6 +379,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
 
 
 def _decode_layer(cfg: ModelConfig, layer: Layer, c, h, new_len):
+    _mesh_check(layer.mixer)
     hn = rmsnorm(h, layer.norm1, cfg.norm_eps)
     if layer.mixer == "attention":
         k, v = attn.decode_project_kv(cfg.attention, layer.attn, hn, new_len,
@@ -332,7 +400,7 @@ def _decode_layer(cfg: ModelConfig, layer: Layer, c, h, new_len):
     if layer.ffn == "dense":
         h = h + mlp(layer.mlp, hn, cfg.act)
     elif layer.ffn == "moe":
-        h = h + moe_mod.moe_dense(cfg.moe, layer.moe, hn, cfg.act)
+        h = h + moe_mod.moe_decode(cfg.moe, layer.moe, hn, cfg.act)
     else:
         # no shift state, as the reference (transformer.py, _decode_layer)
         y, c["ffn_shift"] = rwkv.rwkv_ffn_forward(layer.rwkvffn, hn,
@@ -341,15 +409,34 @@ def _decode_layer(cfg: ModelConfig, layer: Layer, c, h, new_len):
     return h, c
 
 
+def _len_rows(cache, new_len):
+    """The lengths of the rows this rank's k / v hold: under a mesh
+    ``len`` may be whole (CACHE_RULES leave the root ``len`` replicated)
+    while the k / v split their rows over ``batch``."""
+    if not comm.active():
+        return new_len
+    rows = comm.spec_of(cache["layers"][0]["k"])[0]
+    have = (comm.spec_of(cache["len"]) or (None,))[0]
+    if have == rows:
+        return new_len
+    if have is not None:
+        raise NotImplementedError(f"len split over {have!r}, k / v rows "
+                                  f"over {rows!r}")
+    return comm.local_rows(new_len, comm.entry_axes(rows))
+
+
 def decode_step(cfg: ModelConfig, model: Transformer, cache, tokens):
     """tokens (B, 1) -> (logits (B, V), cache').  The cache's tensors are
     updated in place."""
     x = embed(model.embed, tokens, cfg.embed_scale, cfg.d_model)
     new_len = cache["len"] + 1
+    if hasattr(cache["len"], comm.SPEC):
+        setattr(new_len, comm.SPEC, getattr(cache["len"], comm.SPEC))
+    rows_len = _len_rows(cache, new_len)
     layers = []
     h = x
     for layer, c in zip(model.layers, cache["layers"]):
-        h, c = _decode_layer(cfg, layer, c, h, new_len)
+        h, c = _decode_layer(cfg, layer, c, h, rows_len)
         layers.append(c)
     h = rmsnorm(h, model.final_norm, cfg.norm_eps)
     logits = unembed_logits(model.embed, h[:, 0], cfg.tie_embeddings)

@@ -21,8 +21,8 @@ Two pieces:
 
 The port of ``repro/runtime/elastic.py``: host logic over the port's
 ``core.oracle`` and ``core.window``.  The plan is arithmetic over hosts
-and chips; nothing here builds a device mesh (ROADMAP.md A7: a mesh is
-n/a on 1xH100).
+and chips; nothing here builds a device mesh, as in the reference (the
+port's meshes are ``repro_torch.launch.mesh``'s).
 """
 
 from __future__ import annotations

@@ -17,6 +17,13 @@ API (mirrors the optax triple, but plain functions):
     state = opt.init(params)
     updates, state = opt.update(grads, state, params, step)
     params = apply_updates(params, updates)   # in place
+
+Under a mesh each rank holds its blocks of the leaves, and the train step
+passes ``norm_axes`` (leaf -> the mesh axes its blocks differ over): the
+clipping norm then sums each leaf's squares over those axes, so that it is
+the global norm.  AdamW and SGD are elementwise otherwise; Adafactor's
+factored moments and per-leaf means need the whole leaf and raise on a
+mesh (ROADMAP.md A13).
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+
+from repro_torch.sharding import comm
 
 f32 = torch.float32
 
@@ -52,8 +61,8 @@ class TrainConfig:
     grad_accum: int = 1
     # dtype of the accumulation buffer: float32 (exact) or bfloat16
     accum_dtype: str = "float32"
-    # int8 error-feedback compression of the cross-pod all-reduce: needs a
-    # pod mesh (ROADMAP.md A7, S5: n/a on 1xH100)
+    # int8 error-feedback compression of the cross-pod all-reduce (needs a
+    # pod mesh axis)
     dp_compression: str = "none"        # none | int8
     seed: int = 0
 
@@ -77,17 +86,26 @@ def lr_schedule(tcfg: TrainConfig, step):
 # --------------------------------------------------------------------------
 # Global-norm clipping
 # --------------------------------------------------------------------------
-def global_norm(tree: dict):
+def global_norm(tree: dict, norm_axes: dict | None = None):
     """sqrt of the sum of every leaf's squares, in f32 (leaves in sorted
-    name order)."""
+    name order).  With ``norm_axes`` (a mesh's blocks) each leaf's sum is
+    summed over the axes its blocks differ over, leaves sharing axes
+    together."""
     sums = [torch.sum(torch.square(tree[k].to(f32))) for k in sorted(tree)]
+    if norm_axes is not None:
+        groups: dict = {}
+        for k, s in zip(sorted(tree), sums):
+            groups.setdefault(norm_axes[k], []).append(s)
+        sums = [comm.all_reduce_raw(torch.sum(torch.stack(v)), axes)
+                for axes, v in groups.items()]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float,
+                        norm_axes: dict | None = None):
     """(the grads in f32, scaled so that their global norm is at most
     ``max_norm``; the norm before scaling)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, norm_axes)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
     return {k: g.to(f32) * scale for k, g in grads.items()}, norm
 
@@ -121,7 +139,8 @@ def _device(params: dict):
 # --------------------------------------------------------------------------
 # AdamW
 # --------------------------------------------------------------------------
-def make_adamw(tcfg: TrainConfig) -> Optimizer:
+def make_adamw(tcfg: TrainConfig, norm_axes: dict | None = None
+               ) -> Optimizer:
     def init(params):
         zeros = lambda p: torch.zeros(p.shape, dtype=f32, device=p.device)
         return {"m": {k: zeros(p) for k, p in params.items()},
@@ -129,7 +148,8 @@ def make_adamw(tcfg: TrainConfig) -> Optimizer:
                 **_scalars(_device(params))}
 
     def update(grads, state, params, step):
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip_norm,
+                                           norm_axes)
         count = state["count"] + 1
         b1, b2 = tcfg.b1, tcfg.b2
         c1 = 1.0 - b1 ** count.to(f32)
@@ -164,7 +184,12 @@ def _factored_dims(shape):
     return len(shape) - 2, len(shape) - 1
 
 
-def make_adafactor(tcfg: TrainConfig) -> Optimizer:
+def make_adafactor(tcfg: TrainConfig, norm_axes: dict | None = None
+                   ) -> Optimizer:
+    if norm_axes is not None:
+        raise NotImplementedError(
+            "Adafactor on a mesh: its factored moments and per-leaf means "
+            "need the whole leaf (ROADMAP.md A13)")
     decay = 0.8  # beta2 schedule exponent: 1 - t^-0.8 (paper default)
 
     def dims_of(p):
@@ -191,7 +216,8 @@ def make_adafactor(tcfg: TrainConfig) -> Optimizer:
         return st
 
     def update(grads, state, params, step):
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip_norm,
+                                           norm_axes)
         count = state["count"] + 1
         t = count.to(f32)
         beta2 = 1.0 - t ** (-decay)
@@ -242,12 +268,14 @@ def make_adafactor(tcfg: TrainConfig) -> Optimizer:
 # --------------------------------------------------------------------------
 # SGD (tests / ablations)
 # --------------------------------------------------------------------------
-def make_sgd(tcfg: TrainConfig) -> Optimizer:
+def make_sgd(tcfg: TrainConfig, norm_axes: dict | None = None
+             ) -> Optimizer:
     def init(params):
         return _scalars(_device(params))
 
     def update(grads, state, params, step):
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip_norm,
+                                           norm_axes)
         lr = lr_schedule(tcfg, step)
         updates = {k: -lr * g for k, g in grads.items()}
         return updates, {"count": state["count"] + 1, "grad_norm": gnorm,
@@ -256,6 +284,8 @@ def make_sgd(tcfg: TrainConfig) -> Optimizer:
     return Optimizer(init=init, update=update)
 
 
-def make_optimizer(tcfg: TrainConfig) -> Optimizer:
+def make_optimizer(tcfg: TrainConfig, norm_axes: dict | None = None
+                   ) -> Optimizer:
+    """The optimizer of ``tcfg``; ``norm_axes`` for a mesh's blocks."""
     return {"adamw": make_adamw, "adafactor": make_adafactor,
-            "sgd": make_sgd}[tcfg.optimizer](tcfg)
+            "sgd": make_sgd}[tcfg.optimizer](tcfg, norm_axes)

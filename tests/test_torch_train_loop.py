@@ -3,8 +3,9 @@
 checkpoint every 10, rerun to 30) resumes from step 10's checkpoint and
 gives exactly the losses of an uninterrupted run over steps 11-29; the
 checkpoint holds the parameters and the optimizer's state under the
-reference's paths and shapes; the flags that need a pod or a card refuse
-here."""
+reference's paths and shapes; ``--mesh`` outside a 256-rank world and the
+default device without a card refuse here; under torchrun a rank takes
+its ``LOCAL_RANK``'s card before it joins the group."""
 
 import os
 
@@ -76,11 +77,53 @@ def test_restore_writes_the_state_back(tmp_path):
 
 
 def test_mesh_and_missing_card_refuse():
-    with pytest.raises(NotImplementedError, match="A7"):
+    """``--mesh`` builds the production mesh (16 x 16 ranks): outside a
+    world of 256 ranks it raises ValueError, with no fallback to one
+    device; without a card the default device refuses."""
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         LT.main(ARGV + ["--mesh"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        LT.build(None, TrainConfig(), mesh=object())
+    with pytest.raises(ValueError, match="needs 256 ranks"):
+        LT.train_loop(tcatalog.tiny(tbase.get_config("llama3.2-1b")),
+                      TrainConfig(), 1, 4, 64, None, use_mesh_flag=True,
+                      device="cpu")
     if not torch.cuda.is_available():
         argv = [a for a in ARGV if a not in ("--device", "cpu")]
         with pytest.raises(RuntimeError, match="CUDA"):
             LT.main(argv)
+
+
+def test_torchrun_rank_takes_its_local_card(monkeypatch):
+    """``--mesh`` under torchrun's environment: the rank makes the card of
+    its LOCAL_RANK current before ``init_process_group`` (else every rank
+    of a host would put its state on cuda:0 and NCCL would refuse), and
+    ``rank_device`` names that card.  The card is faked: the group's
+    start stops the run."""
+    calls = []
+
+    class Joined(Exception):
+        pass
+
+    def join(**kw):
+        calls.append(("init_process_group", kw.get("init_method")))
+        raise Joined
+
+    monkeypatch.setenv("WORLD_SIZE", "256")
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda i: calls.append(("set_device", i)))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    monkeypatch.setattr(LT.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(LT.dist, "init_process_group", join)
+    argv = [a for a in ARGV if a not in ("--device", "cpu")]
+    with pytest.raises(Joined):
+        LT.main(argv + ["--mesh"])
+    assert calls == [("set_device", 3), ("init_process_group", "env://")]
+    assert LT.rank_device(None) == torch.device("cuda", 3)
+    assert LT.rank_device("cuda:1") == torch.device("cuda", 1)
+    # a rank asked for the CPU takes no card
+    calls.clear()
+    with pytest.raises(Joined):
+        LT.main(ARGV + ["--mesh"])
+    assert calls == [("init_process_group", "env://")]
+    assert LT.rank_device("cpu") == torch.device("cpu")

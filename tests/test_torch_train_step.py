@@ -119,12 +119,22 @@ def test_split_microbatches_refuses_an_uneven_split():
 
 
 def test_int8_dp_compression_needs_a_pod_mesh():
-    _, tcfg = _cfgs("llama3.2-1b")
+    """``init_state`` gives the reference's error feedback ``ef`` (f32
+    zeros of every leaf's shape); the step raises without a pod mesh."""
+    jcfg, tcfg = _cfgs("llama3.2-1b")
+    jtc = jt.TrainConfig(dp_compression="int8")
     tc = tt.TrainConfig(dp_compression="int8")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tt.make_train_step(tcfg, tc)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tt.init_state(tcfg, tc, torch.Generator().manual_seed(0), "cpu")
+    jst = jax.eval_shape(lambda k: jt.init_state(jcfg, jtc, k),
+                         jax.ShapeDtypeStruct((2,), jnp.uint32))
+    state = tt.init_state(tcfg, tc, torch.Generator().manual_seed(0), "cpu")
+    want = {k: (tuple(v.shape), str(v.dtype))
+            for k, v in _flatten_with_paths(jst["ef"])}
+    got = {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+           for k, v in _flatten_with_paths(state["ef"])}
+    assert got == want
+    assert all(not v.any() for v in state["ef"].values())
+    with pytest.raises(ValueError, match="'pod' mesh axis"):
+        tt.make_train_step(tcfg, tc)(state, _batch(4, 8))
 
 
 @pytest.mark.parametrize("step", [0, 1, 5, 99, 100, 5000, 10_000, 20_000])
