@@ -162,11 +162,29 @@ LM14. ``train_at_size``  llama3.2-1b at full width and depth (1 235 814 400
    lies within 2 of ln V, and every step
    launched K5 32 times (all on the tensor cores) and K8 65 times: each
    layer's forward and its remat recompute, and the final norm.
-LM15. ``train_resume``  ``examples/train_resume.py``'s flow through the
-   port's ``launch.train.main`` on the card: tiny llama, 30 steps; then die
-   after step 18 with a checkpoint every 10 and rerun to 30: the resumed
-   steps 11-29 equal the uninterrupted run's losses within 1e-5 relative.
+LM15. ``train_resume``  ``repro_torch.examples.train_resume`` on the
+   card (the port of ``examples/train_resume.py``: tiny llama, die after
+   step 18 with a checkpoint every 10, rerun to 30) beside one
+   uninterrupted ``launch.train.main`` run of 30 steps: the resumed steps
+   11-29 equal the uninterrupted run's losses within 1e-5 relative.
    A ``training`` line gives the four phases' seconds.
+LM15a. ``dryrun_vs_card``  whether the card host's torch has the ``fake``
+   backend and its ``FakeStore``; then ``repro_torch.launch.dryrun`` on the
+   meta device (no card) at ``train_at_size``'s own cell (llama3.2-1b, 4 x
+   2048, bf16, remat full, AdamW, no mesh): its predicted peak bytes and
+   roofline seconds (the H100 data sheet's constants) beside
+   ``train_at_size``'s measured ``max_memory_allocated`` and median step
+   seconds; fails where the peaks differ by more than 10 %.  Then one
+   production cell through the CLI (granite-moe ``train_4k --multi-pod
+   --compress int8``: rank 0 of a 512-rank fake world), its record
+   printed.
+LM15b. ``examples``  ``repro_torch.examples.quickstart``,
+   ``serve_continuous_batching`` and ``elastic_hot_spares`` on the card:
+   fails unless each one's own assertions hold, the quickstart's counter
+   reads 2000, its 8 losses are finite and fall and its 6 requests
+   complete, every policy of the serving example completes its 12
+   requests, and K5 and K8 launched (their launches, set to 0 just before
+   each example).
 LM16. ``mesh_world1``  the mesh path (``repro_torch.sharding``,
    ``launch.mesh``) on one card: a process group of world size 1 (NCCL for
    the card's tensors, gloo for the CPU's; a file store in a temporary
@@ -343,7 +361,8 @@ LM16. ``mesh_world1``  the mesh path (``repro_torch.sharding``,
    special-function units, with no library call and the launches of
    ``serve_jamba_at_size``.  The training path: ``flash_attention`` and
    ``rmsnorm`` carry ``train_launches`` (over ``train_at_size``'s 8 steps)
-   and ``train_launches_per_step``, ``rwkv6_scan`` and ``mamba_scan`` the
+   and ``train_launches_per_step`` and ``examples_launches`` (the
+   ``examples`` phase's), ``rwkv6_scan`` and ``mamba_scan`` the
    launches of ``train_lm_vs_plain``'s card steps, and every LM entry
    ``grad_max_err_over_limit``, its kernel's worst gradient excess in
    ``train_grad_vs_plain``.
@@ -3289,10 +3308,17 @@ TRAIN_LEAF_LIMIT = 1e-3
 #: logit_chunk 512, AdamW at the reference's defaults.
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
-#: train_resume: examples/train_resume.py's flow (tiny llama).
-RESUME_ARGV = ["--arch", "llama3.2-1b", "--tiny", "--steps", "30",
-               "--batch", "4", "--seq", "64"]
+#: train_resume: the resumed losses against an uninterrupted run's.
 RESUME_RTOL = 1e-5
+#: dryrun_vs_card: the meta prediction of train_at_size's peak bytes
+#: against its measured max_memory_allocated, relative.  Set before the
+#: first run on the card: the counter tracks every storage the step
+#: allocates and frees, while the allocator's rounding, cuBLAS's workspaces
+#: and what earlier phases left allocated are not on meta.
+DRYRUN_PEAK_RTOL = 0.10
+#: dryrun_vs_card: one production cell through the CLI.
+DRYRUN_CELL = ["--arch", "granite-moe-1b-a400m", "--shape", "train_4k",
+               "--multi-pod", "--compress", "int8"]
 
 
 def grad_excess(got, want, dtype):
@@ -3630,24 +3656,27 @@ def phase_train_at_size():
           "loader_gets": loader["gets"], "monitor_ready": ready,
           "seconds": time.perf_counter() - t0})
     return {"k5": want["k5"] * TRAIN_STEPS, "k8": want["k8"] * TRAIN_STEPS,
-            "k5_per_step": want["k5"], "k8_per_step": want["k8"]}
+            "k5_per_step": want["k5"], "k8_per_step": want["k8"],
+            "peak_bytes": peak, "median_step_seconds": step_s}
 
 
 def phase_train_resume():
-    """examples/train_resume.py's flow through the port's
-    ``launch.train.main`` on the card: tiny llama, 30 steps uninterrupted;
-    then die after step 18 with a checkpoint every 10 and rerun to 30.
+    """``repro_torch.examples.train_resume`` on the card (tiny llama: die
+    after step 18 with a checkpoint every 10, rerun to 30) beside one
+    uninterrupted run of ``launch.train.main`` over the same 30 steps.
     The resumed steps (11-29: the loop resumes after the restored step)
     equal the uninterrupted run's losses within RESUME_RTOL."""
+    from repro_torch.examples import train_resume as TR
     from repro_torch.launch import train as LT
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()) as log, \
-            tempfile.TemporaryDirectory() as d:
-        whole = LT.main(RESUME_ARGV)
-        died = LT.main(RESUME_ARGV + ["--ckpt-dir", d, "--ckpt-every", "10",
-                                      "--fail-at", "18"])
-        resumed = LT.main(RESUME_ARGV + ["--ckpt-dir", d, "--ckpt-every",
-                                         "10"])
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        whole = LT.main(TR.ARGV)
+        try:
+            got = TR.main([])
+        except AssertionError as e:
+            fail(f"train_resume: the example's check failed: {e!r}, log "
+                 f"{log.getvalue()[-300:]}")
+    died, resumed = got["died"], got["resumed"]
     if died.get("died_at") != 18 or "[resume] restored step 10" not in \
             log.getvalue():
         fail(f"train_resume: died {died.get('died_at')}, log "
@@ -3661,6 +3690,125 @@ def phase_train_resume():
     emit({"phase": "train_resume", "resumed_steps": [11, 29],
           "losses_compared": len(got), "worst_rel_err": worst,
           "limit": RESUME_RTOL, "seconds": time.perf_counter() - t0})
+
+
+def phase_dryrun_vs_card(train_at):
+    """The dry-run (``repro_torch.launch.dryrun``, on the meta device: no
+    card) at ``train_at_size``'s cell beside what that phase measured: the
+    predicted peak bytes against its ``max_memory_allocated`` (within
+    DRYRUN_PEAK_RTOL), the roofline seconds against its median step.  First
+    whether this torch has the ``fake`` backend and its ``FakeStore``; then
+    DRYRUN_CELL through the CLI, its record printed."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import base as CB
+    from repro_torch.launch import costanalysis as CA
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.train import TrainConfig
+    t0 = time.perf_counter()
+    try:
+        from torch.testing._internal.distributed.fake_pg import \
+            FakeStore  # noqa: F401
+        store = True
+    except ImportError:
+        store = False
+    backend = "fake" in getattr(dist.Backend, "backend_list", ())
+    emit({"phase": "dryrun_vs_card", "torch": torch.__version__,
+          "fake_backend": backend, "fake_store": store})
+    if not (backend and store):
+        fail("dryrun_vs_card: this torch lacks the fake backend or its "
+             "FakeStore")
+    cfg = CB.get_config(TRAIN_ARCH)
+    shape = CB.ShapeConfig("train_at_size", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t1 = time.perf_counter()
+    got = DR.measure(*DR.build_cell(cfg, shape, None, None, TrainConfig()))
+    meta_s = time.perf_counter() - t1
+    cost = got["cost"]
+    terms = CA.roofline_terms(cost, cost.traffic_bytes)
+    bound_s = max(terms["compute_s"], terms["memory_s"],
+                  terms["collective_s"])
+    pred, meas = got["memory"]["peak_bytes_per_device"], train_at[
+        "peak_bytes"]
+    rel = (pred - meas) / meas
+    t2 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log, \
+            tempfile.TemporaryDirectory() as d:
+        try:
+            rec = DR.main(DRYRUN_CELL + ["--out", d, "--force"])[0]
+        except SystemExit:
+            fail(f"dryrun_vs_card: {DRYRUN_CELL} failed: "
+                 f"{log.getvalue()[-600:]}")
+    cell_s = time.perf_counter() - t2
+    emit({"phase": "dryrun_vs_card", "arch": TRAIN_ARCH,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "part": CA.PART,
+          "predicted_peak_bytes": pred, "measured_peak_bytes": meas,
+          "peak_rel_err": rel, "limit": DRYRUN_PEAK_RTOL,
+          "memory": got["memory"], "roofline_s": bound_s,
+          "roofline": {k: terms[k] for k in ("compute_s", "memory_s",
+                                             "collective_s", "dominant",
+                                             "flops", "traffic_bytes")},
+          "measured_median_step_seconds": train_at["median_step_seconds"],
+          "n_ops": cost.n_ops, "kernels": cost.kernels,
+          "meta_step_seconds": meta_s, "cli_cell": DRYRUN_CELL,
+          "cli_seconds": cell_s, "cli_record": rec,
+          "seconds": time.perf_counter() - t0})
+    if not abs(rel) <= DRYRUN_PEAK_RTOL:
+        fail(f"dryrun_vs_card: predicted peak {pred} B against {meas} B "
+             f"measured ({rel:+.4f})")
+
+
+def phase_examples():
+    """``repro_torch.examples.quickstart``, ``serve_continuous_batching``
+    and ``elastic_hot_spares`` on the card, each with its launches of K5
+    and K8 (set to 0 just before it).  Fails unless each one's own
+    assertions hold, the quickstart's counter reads 2000, its losses are
+    finite and fall and its requests complete, every policy of the serving
+    example completes its requests, and K5 and K8 launched."""
+    import math
+
+    from repro_torch.examples import elastic_hot_spares as EH
+    from repro_torch.examples import quickstart as QS
+    from repro_torch.examples import serve_continuous_batching as SCB
+    t0 = time.perf_counter()
+    runs, total = {}, {"k5": 0, "k8": 0}
+    for name, mod in (("quickstart", QS), ("serve_continuous_batching", SCB),
+                      ("elastic_hot_spares", EH)):
+        LMA.launches = LMN.launches = 0
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            try:
+                res = mod.main([])
+            except AssertionError as e:
+                fail(f"examples: {name}: {e!r}, log "
+                     f"{log.getvalue()[-300:]}")
+        torch.cuda.synchronize()
+        runs[name] = {"seconds": time.perf_counter() - t1,
+                      "k5": LMA.launches, "k8": LMN.launches,
+                      "log_tail": log.getvalue()[-400:]}
+        total["k5"] += LMA.launches
+        total["k8"] += LMN.launches
+        if name == "quickstart":
+            losses = res["losses"]
+            ok = (res["counter"] == 2000
+                  and all(math.isfinite(x) for x in losses)
+                  and losses[-1] < losses[0]
+                  and res["serve"]["completed"] == QS.REQUESTS)
+            runs[name].update(fig1=res["fig1"], losses=losses,
+                              completed=res["serve"]["completed"])
+        elif name == "serve_continuous_batching":
+            done = {p: r["completed"] for p, r in res.items()}
+            ok = all(n == SCB.REQUESTS for n in done.values())
+            runs[name]["completed"] = done
+        else:
+            ok = True
+            runs[name]["rows"] = res
+        if not ok:
+            fail(f"examples: {name}: {runs[name]}")
+    if not (total["k5"] > 0 and total["k8"] > 0):
+        fail(f"examples: K5 / K8 launched {total}")
+    emit({"phase": "examples", "runs": runs, "launches": total,
+          "seconds": time.perf_counter() - t0})
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -4625,6 +4773,8 @@ def main():
     train_launches = phase_train_at_size()
     phase_train_resume()
     emit({"phase": "training", "seconds": time.perf_counter() - t_train})
+    phase_dryrun_vs_card(train_launches)
+    examples_launches = phase_examples()
     mesh_launches = phase_mesh_world1()
     max_abs_err = phase_kernel_vs_plain()
     open_abs_err = phase_open_kernel_vs_plain()
@@ -4663,6 +4813,7 @@ def main():
             total, per = train_keys[entry["name"]]
             entry["train_launches"] = train_launches[total]
             entry["train_launches_per_step"] = train_launches[per]
+            entry["examples_launches"] = examples_launches[total]
             # granite-moe: served at size, and on the mesh at world size 1
             k = total
             entry["granite_launches"] = (

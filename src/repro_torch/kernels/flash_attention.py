@@ -27,6 +27,8 @@ import math
 
 import torch
 
+from repro_torch.launch import costanalysis
+
 from . import lm_lib, ref
 
 #: Largest head dim the kernel takes (a multiple of 8 up to it).
@@ -39,6 +41,10 @@ TC_HEAD_DIMS = (64, 128)
 LIMIT = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: Query rows a tile of the backward recomputes its scores for.
 BWD_TILE = 512
+#: (query rows, keys) of a tile: the tensor-core kernel's CTA
+#: (``flash_attention_sm90.cu``: BM, BN) and the SIMT kernel's (BQ, BK).
+TC_TILE = (128, 64)
+SIMT_TILE = (64, 64)
 
 
 def tensor_core_path(dtype, hd) -> bool:
@@ -103,16 +109,50 @@ def check_operands(q, k, v):
                              f"aligned")
 
 
+def tiles(Sq, Sk, causal, window, tc: bool) -> int:
+    """The (query block, key block) tiles a launch computes for one head:
+    the key blocks each query block visits, as the kernels' loops bound
+    them (``key_blocks`` in ``flash_attention_sm90.cu``, the loop's break
+    and skip in ``flash_attention.cu``)."""
+    BM, BN = TC_TILE if tc else SIMT_TILE
+    nk = -(-Sk // BN)
+    n = 0
+    for q0 in range(0, Sq, BM):
+        kb1 = min(nk, (q0 + BM - 1) // BN + 1) if causal else nk
+        t = q0 - window - BN + 2
+        kb0 = -(-t // BN) if window > 0 and t > 0 else 0
+        n += max(0, kb1 - kb0)
+    return n
+
+
+def meta_cost(q, k, causal, window) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch: QK^T and PV, 4·hd a (row, key) pair,
+    over every pair of the tiles the kernel computes (:func:`tiles`, whole
+    tiles as the hardware computes them), and q, k, v read and the output
+    written once."""
+    BH, Sq, hd = q.shape
+    BKV, Sk, _ = k.shape
+    tc = tensor_core_path(q.dtype, hd)
+    BM, BN = TC_TILE if tc else SIMT_TILE
+    flops = 4.0 * hd * BM * BN * BH * tiles(Sq, Sk, causal, window, tc)
+    n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return flops, n_bytes
+
+
 def _forward(q, k, v, causal, window, softcap):
     """:func:`flash_attention` outside autograd: the launch, or the plain
-    version on CPU tensors."""
+    version on CPU tensors, or the meta branch."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window, softcap=softcap)
     check_operands(q, k, v)
+    if q.device.type == "meta" and costanalysis.active() is not None:
+        costanalysis.add_kernel("flash_attention",
+                                *meta_cost(q, k, causal, window))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not "
-                         f"{q.device}")
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors (meta "
+                         f"ones under a cost counter), not {q.device}")
     BH, Sq, hd = q.shape
     out = torch.empty_like(q)
     if Sq == 0:
@@ -212,8 +252,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (:func:`check_operands`) and, on CUDA, launch one of the two kernels on
     the current stream, adding one to ``flash_attention.launches`` and, on
     the tensor-core path, to ``flash_attention.tc_launches``; there is no
-    fallback.  Where q, k or v requires grad (and grad mode is on) the call
-    goes through :class:`FlashAttention`."""
+    fallback.  Meta tensors under a cost counter
+    (:mod:`repro_torch.launch.costanalysis`) launch nothing: the output is
+    an empty meta tensor and the counter takes :func:`meta_cost`.  Where q,
+    k or v requires grad (and grad mode is on) the call goes through
+    :class:`FlashAttention`."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, softcap)

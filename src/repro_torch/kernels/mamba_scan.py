@@ -40,6 +40,8 @@ import ctypes
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import costanalysis
+
 from . import lm_lib, ref
 from .grad import scan_grads
 
@@ -112,17 +114,30 @@ def check_operands(dt, x, Bm, Cm, a, chunk):
                              f"aligned")
 
 
+def meta_cost(dt, x, Bm, Cm, a) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch: six f32 operations a (step, channel,
+    state) beside its exp, the inputs read and y, s_T written once."""
+    B, T, d = x.shape
+    N = a.shape[1]
+    n_bytes = sum(t.numel() * t.element_size() for t in (dt, x, Bm, Cm, a))
+    return 6.0 * B * T * d * N, n_bytes + 4 * (B * T * d + B * d * N)
+
+
 def _forward(dt, x, Bm, Cm, a, chunk):
     """:func:`mamba_scan` outside autograd: the launch, or the plain
-    version on CPU tensors."""
+    version on CPU tensors, or the meta branch."""
     if x.device.type == "cpu":
         return ref.mamba_scan_ref(dt, x, Bm, Cm, a)
     check_operands(dt, x, Bm, Cm, a, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"mamba_scan runs on cuda or cpu tensors, not "
-                         f"{x.device}")
     B, T, d = x.shape
     N = a.shape[1]
+    if x.device.type == "meta" and costanalysis.active() is not None:
+        costanalysis.add_kernel("mamba_scan", *meta_cost(dt, x, Bm, Cm, a))
+        return (x.new_empty((B, T, d), dtype=torch.float32),
+                x.new_empty((B, d, N), dtype=torch.float32))
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba_scan runs on cuda or cpu tensors (meta "
+                         f"ones under a cost counter), not {x.device}")
     y = torch.empty_like(x)
     sT = torch.empty((B, d, N), dtype=torch.float32, device=x.device)
     split = (ctypes.c_int * 2)()
@@ -192,8 +207,11 @@ def mamba_scan(dt, x, Bm, Cm, a, *, chunk: int = 64):
     ``mamba_scan.lanes_per_channel`` and ``mamba_scan.channels_per_lane``
     to the split the launch took; there is no fallback.  ``chunk`` is how
     many steps the kernel stages at once (at most T); the result does not
-    depend on it.  Where an input requires grad (and grad mode is on) the
-    call goes through :class:`MambaScan`."""
+    depend on it.  Meta tensors under a cost counter
+    (:mod:`repro_torch.launch.costanalysis`) launch nothing: the outputs
+    are empty meta tensors and the counter takes :func:`meta_cost`.  Where
+    an input requires grad (and grad mode is on) the call goes through
+    :class:`MambaScan`."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (dt, x, Bm, Cm, a)):
         return MambaScan.apply(dt, x, Bm, Cm, a, chunk)

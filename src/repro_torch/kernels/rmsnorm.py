@@ -28,6 +28,8 @@ import ctypes
 
 import torch
 
+from repro_torch.launch import costanalysis
+
 from . import lm_lib, ref
 
 
@@ -53,9 +55,15 @@ def occupancy(device=None) -> dict:
     return res
 
 
+def meta_cost(x, w) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch: 4 a value (square, sum, scale,
+    weight), x and w read and y written once."""
+    return 4.0 * x.numel(), x.element_size() * (2 * x.numel() + w.numel())
+
+
 def _forward(x, w, eps):
     """:func:`rmsnorm` outside autograd: the launch, or the plain version
-    on CPU tensors."""
+    on CPU tensors, or the meta branch."""
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
     if x.dtype not in lm_lib.DTYPE_CODE or w.dtype != x.dtype:
@@ -73,9 +81,12 @@ def _forward(x, w, eps):
         raise ValueError(f"w: on {w.device}, x is on {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
+    if x.device.type == "meta" and costanalysis.active() is not None:
+        costanalysis.add_kernel("rmsnorm", *meta_cost(x, w))
+        return torch.empty_like(x)
     if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm runs on cuda or cpu tensors, not "
-                         f"{x.device}")
+        raise ValueError(f"rmsnorm runs on cuda or cpu tensors (meta ones "
+                         f"under a cost counter), not {x.device}")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("x and w must be 16-byte aligned")
     out = torch.empty_like(x)
@@ -126,8 +137,11 @@ def rmsnorm(x, w, eps: float = 1e-6):
     kernel on the current stream after checking dtype, device, shape,
     contiguity and 16-byte vectors (D a multiple of 4 f32 / 8 bf16, rows
     aligned) (``ValueError`` / ``TypeError``), adding one to
-    ``rmsnorm.launches``; there is no fallback.  Where x or w requires
-    grad (and grad mode is on) the call goes through :class:`RMSNorm`."""
+    ``rmsnorm.launches``; there is no fallback.  Meta tensors under a cost
+    counter (:mod:`repro_torch.launch.costanalysis`) launch nothing: the
+    output is an empty meta tensor and the counter takes
+    :func:`meta_cost`.  Where x or w requires grad (and grad mode is on)
+    the call goes through :class:`RMSNorm`."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return RMSNorm.apply(x, w, eps)
     return _forward(x, w, eps)

@@ -35,6 +35,8 @@ import ctypes
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import costanalysis
+
 from . import lm_lib, ref
 from .grad import scan_grads
 
@@ -107,16 +109,29 @@ def check_operands(r, k, v, w, u, s0, chunk):
                              f"aligned")
 
 
+def meta_cost(r, k, v, w, u, s0) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch: 5n^2 + 5n f32 operations a head and
+    step, the inputs read and y, S_T written once."""
+    BH, T, n = r.shape
+    ins = (r, k, v, w, u) + (() if s0 is None else (s0,))
+    n_bytes = 4 * (sum(t.numel() for t in ins) + r.numel() + BH * n * n)
+    return float(BH * T * (5 * n * n + 5 * n)), n_bytes
+
+
 def _forward(r, k, v, w, u, s0, chunk):
     """:func:`rwkv6_scan` outside autograd: the launch, or the plain
-    version on CPU tensors."""
+    version on CPU tensors, or the meta branch."""
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, w, u, s0)
     check_operands(r, k, v, w, u, s0, chunk)
-    if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan runs on cuda or cpu tensors, not "
-                         f"{r.device}")
     BH, T, n = r.shape
+    if r.device.type == "meta" and costanalysis.active() is not None:
+        costanalysis.add_kernel("rwkv6_scan", *meta_cost(r, k, v, w, u, s0))
+        return (torch.empty_like(r),
+                r.new_empty((BH, n, n), dtype=torch.float32))
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan runs on cuda or cpu tensors (meta "
+                         f"ones under a cost counter), not {r.device}")
     y = torch.empty_like(r)
     sT = torch.empty((BH, n, n), dtype=torch.float32, device=r.device)
     cols = ctypes.c_int(0)
@@ -185,8 +200,11 @@ def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 64):
     stream, adding one to ``rwkv6_scan.launches`` and setting
     ``rwkv6_scan.ctas_per_head`` to the CTAs a head the launch took; there
     is no fallback.  ``chunk`` is how many steps the kernel stages at once;
-    the result does not depend on it.  Where an input requires grad (and
-    grad mode is on) the call goes through :class:`RWKV6Scan`."""
+    the result does not depend on it.  Meta tensors under a cost counter
+    (:mod:`repro_torch.launch.costanalysis`) launch nothing: the outputs
+    are empty meta tensors and the counter takes :func:`meta_cost`.  Where
+    an input requires grad (and grad mode is on) the call goes through
+    :class:`RWKV6Scan`."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
         return RWKV6Scan.apply(r, k, v, w, u, s0, chunk)

@@ -43,9 +43,10 @@ def family(cfg: ModelConfig):
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None):
     """Random parameters on ``device``, drawn from ``generator`` (default:
-    a generator on ``device`` seeded with 0)."""
+    a generator on ``device`` seeded with 0; none on the meta device, which
+    holds shapes only)."""
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     return family(cfg).init_params(cfg, generator, device)
 

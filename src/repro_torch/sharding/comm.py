@@ -23,6 +23,11 @@ over each in turn, the minor axis first where blocks are laid out, which
 composes to the collective over their product.  gloo has no
 ``reduce_scatter_tensor``: on CPU tensors the scatter is an all-reduce
 and a slice.
+
+Each raw collective logs its kind, operand and output bytes and group
+size to the active cost counter (:mod:`repro_torch.launch.costanalysis`),
+whatever the backend: the dry-run's collective terms.  A scatter is
+logged as one, also where an all-reduce carries it out.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from contextlib import contextmanager
 import torch
 import torch.distributed as dist
 from torch.autograd import Function
+
+from repro_torch.launch import costanalysis
 
 from . import specs as sh
 
@@ -61,13 +68,23 @@ def axes_index(axes: tuple, mesh=None) -> int:
 # --------------------------------------------------------------------------
 # Raw collectives over one axis (no autograd)
 # --------------------------------------------------------------------------
-def all_reduce_raw(t, axes: tuple, op=dist.ReduceOp.SUM, mesh=None):
-    """``t`` reduced over ``axes`` (a new tensor)."""
-    m = _mesh(mesh)
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _all_reduce(t, axes, op, m, log: bool):
     out = t.clone()
     for ax in axes:
+        if log:
+            costanalysis.add_collective("all-reduce", _nbytes(out),
+                                        _nbytes(out), m.shape[ax])
         dist.all_reduce(out, op=op, group=m.group(ax))
     return out
+
+
+def all_reduce_raw(t, axes: tuple, op=dist.ReduceOp.SUM, mesh=None):
+    """``t`` reduced over ``axes`` (a new tensor)."""
+    return _all_reduce(t, axes, op, _mesh(mesh), True)
 
 
 def all_gather_raw(t, dim: int, ax: str, mesh=None):
@@ -78,6 +95,7 @@ def all_gather_raw(t, dim: int, ax: str, mesh=None):
     src = t.movedim(dim, 0).contiguous()
     out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                       dtype=t.dtype, device=t.device)
+    costanalysis.add_collective("all-gather", _nbytes(src), _nbytes(out), n)
     dist.all_gather_into_tensor(out, src, group=m.group(ax))
     return out.movedim(0, dim)
 
@@ -93,6 +111,8 @@ def reduce_scatter_raw(t, dim: int, axes: tuple, mesh=None):
     m = _mesh(mesh)
     for ax in axes:                     # major first: blocks nest
         n = m.shape[ax]
+        costanalysis.add_collective("reduce-scatter", _nbytes(t),
+                                    _nbytes(t) // n, n)
         if t.device.type == "cuda":
             src = t.movedim(dim, 0).contiguous()
             out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
@@ -100,7 +120,8 @@ def reduce_scatter_raw(t, dim: int, axes: tuple, mesh=None):
             dist.reduce_scatter_tensor(out, src, group=m.group(ax))
             t = out.movedim(0, dim)
         else:
-            t = _block(all_reduce_raw(t, (ax,), mesh=m), dim, (ax,), m)
+            t = _block(_all_reduce(t, (ax,), dist.ReduceOp.SUM, m, False),
+                       dim, (ax,), m)
     return t.contiguous()
 
 
@@ -110,6 +131,8 @@ def all_to_all_raw(t, ax: str, mesh=None):
     m = _mesh(mesh)
     src = t.contiguous()
     out = torch.empty_like(src)
+    costanalysis.add_collective("all-to-all", _nbytes(src), _nbytes(out),
+                                m.shape[ax])
     dist.all_to_all_single(out, src, group=m.group(ax))
     return out
 

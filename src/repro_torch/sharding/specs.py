@@ -340,9 +340,12 @@ def block_slices(shape, spec, mesh, coords: dict) -> tuple:
 
 def shard_leaf(t: torch.Tensor, spec, mesh, coords: dict | None = None):
     """The block of the global tensor ``t`` that this rank (or the rank
-    at ``coords``) holds under ``spec``: a contiguous copy."""
+    at ``coords``) holds under ``spec``: a contiguous copy, which holds
+    none of the global tensor's storage (``.contiguous()`` of a block that
+    is contiguous already would be a view of it)."""
     coords = mesh.coords if coords is None else coords
-    return t[block_slices(t.shape, spec, mesh, coords)].contiguous()
+    return t[block_slices(t.shape, spec, mesh, coords)].clone(
+        memory_format=torch.contiguous_format)
 
 
 def gather_leaf(t: torch.Tensor, spec, mesh):

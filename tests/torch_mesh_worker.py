@@ -6,9 +6,10 @@
 ``inputs.npz`` (parameters by the reference's leaf paths, batches); the
 ranks meet through a file store in ``JOB_DIR`` (no port), each with one
 thread, and rank 0 writes ``out.npz``: global tensors gathered from the
-ranks' blocks.  The tests (``test_torch_mesh.py``, ``test_torch_moe_ep.py``)
-start the ranks and hold the results against the JAX package and the
-port's one-device runs.  Imports nothing of JAX.
+ranks' blocks, or a cost task's log of collectives.  The tests
+(``test_torch_mesh.py``, ``test_torch_moe_ep.py``, ``test_torch_dryrun.py``)
+start the ranks and hold the results against the JAX package, the port's
+one-device runs and the dry-run.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -230,7 +231,28 @@ def _kept(mcfg, params, x):
     return torch.where(keep.reshape(eidx.shape), eidx, -1)
 
 
-TASKS = {"train": task_train, "decode": task_decode, "moe": task_moe}
+def task_cost(name, job, inp, mesh, out):
+    """One dry-run cell's step (``launch.dryrun.build_cell``) of a tiny
+    arch on the rank's CPU tensors under a cost counter: the collectives
+    it logged, as JSON."""
+    from repro_torch.launch import costanalysis, dryrun
+    spec = job["tasks"][name]
+    cfg = tiny(cbase.get_config(spec["arch"]))
+    shape = cbase.ShapeConfig(name, spec["seq"], spec["batch"], spec["step"])
+    rules = profiles.rules_for(cfg, mesh, shape.step)
+    step, args, _, _ = dryrun.build_cell(cfg, shape, mesh, rules,
+                                         TrainConfig(), device="cpu")
+    with costanalysis.CostCounter() as counter:
+        step(*args)
+    c = counter.cost
+    out[f"{name}/log"] = np.array(json.dumps({
+        "collective_operand_bytes": c.collective_operand_bytes,
+        "collective_wire_bytes": c.collective_wire_bytes,
+        "collective_count": c.collective_count}))
+
+
+TASKS = {"train": task_train, "decode": task_decode, "moe": task_moe,
+         "cost": task_cost}
 
 
 def main(job_dir: str, rank: int, world: int) -> None:
