@@ -82,7 +82,8 @@ LM6. ``rwkv6_lm_vs_plain``  rwkv6-1.6b at full width cut to 2 layers, f32,
 LM7. ``serve_rwkv6_at_size``  ``serve_at_size`` for the full rwkv6-1.6b
    (24 layers, bf16, random weights from a seed), the same traffic: every
    prefill and every decode step launching K6 once per layer and K8
-   2 * layers + 1 times.
+   2 * layers + 1 times; the idle share from a traced pass of the first
+   TRACE_REQUESTS requests, over that pass's own untraced seconds.
 LM8. ``mamba_scan_vs_plain``  ``mamba_scan`` against ``mamba_scan_ref``,
    both on the card, f32, over B {1, 2} x T {1, 7, 64, 65, 1024} x d {48,
    128, 16 384} x N {4, 8, 16} x dt {the model's range, U(1e-3, 1)} x
@@ -110,7 +111,7 @@ LM11a. ``serve_granite_at_size``  ``serve_at_size`` for granite-moe-1b-a400m
    completes with every token in [0, V), every prefill launching K5 24
    times (on the tensor cores: bf16, hd 64) and K8 49 times, every decode
    step K8 49 times and K5 never, K6 and K7 never; the parameter count
-   equal to ``models.param_count``.
+   equal to ``models.param_count``; the idle share as rwkv6's.
 LM12a. ``whisper_lm_vs_plain``  whisper-large-v3 at full width cut to 2
    encoder and 2 decoder layers, f32, one seeded set of weights: one clip
    of 1500 seeded frames and a 4-token prompt, prefill and 8 decode steps
@@ -208,9 +209,24 @@ LM16. ``mesh_world1``  the mesh path (``repro_torch.sharding``,
    capacity factor 1.25) on the card against the CPU: the kept
    assignments equal where the router's k-th and (k+1)-th probabilities
    differ by more than 1e-5, outputs within 2e-2 * max|CPU|, the dropped
-   share.  Each part's seconds and the phase's peak bytes.  Several cards
+   share.  Then the rest of the mesh path, each part against the same run
+   without the mesh at (a)'s and (c)'s tolerances, the MoE routing
+   replayed as in (c): (e) rwkv6-1.6b at full width and depth in bf16,
+   (c)'s prefill and 8 decode steps (K6 24 and K8 49 a forward, on the
+   rank's heads), and one Adafactor step of 4 x 2048 tokens (loss,
+   leaves, the factored moments v_row / v_col within 4e-2 * max|no-mesh|
+   of each leaf; K6 48 and K8 97 with the remat recompute); (f)
+   jamba-1.5-large at full width cut to its first 2 layers (mamba + dense
+   FFN, mamba + MoE FFN), (c)'s decode, K7 2 a prefill and none in decode,
+   K8 7 a forward (the gated norm on whole rows); (g) whisper-large-v3 at
+   full width and depth in bf16, 2 clips of 1500 frames, a 4-token prompt
+   and 8 greedy steps, K5 64 a prefill on the tensor cores and none in
+   decode; (h) granite's decode with ``kvseq`` unset, so that the cache
+   splits its kv heads (the branch of ``_decode_attention_mesh`` that
+   attends locally).  Each part's seconds and peak bytes.  Several cards
    are never visible here (NCCL refuses two ranks on one card): the
-   multi-rank mesh is held on the CPU by ``tests/test_torch_mesh.py``.
+   multi-rank mesh is held on the CPU by ``tests/test_torch_mesh.py`` and
+   ``tests/test_torch_mesh_mixers.py``.
 3. ``kernel_vs_plain``  ``lock_sim_block`` against ``lock_sim_block_ref``,
    both on the card, chained from the engine's initial state for 256 steps
    over the closed conformance matrix (every policy id x workload x fault,
@@ -372,6 +388,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gc
 import importlib
@@ -2023,6 +2040,10 @@ RMS_SHAPES = ((1, 64), (7, 80), (4, 2048), (4096, 2048), (3, 8192),
               (2, 16392), (3, 32768), (3, 32776))
 LM_VS_PLAIN_PROMPT = 300
 LM_VS_PLAIN_STEPS = 8
+#: The requests of the traced pass of the rwkv6 and granite serving
+#: phases (one batch of the 4 slots): their whole drains traced took 40-80
+#: s, which the script's time limit no longer has room for.
+TRACE_REQUESTS = 4
 SERVE_ARGV = ["--arch", "llama3.2-1b", "--requests", "16", "--slots", "4",
               "--max-seq", "2048", "--max-new", "32", "--prompt-min", "128",
               "--prompt-max", "1025", "--policy", "mutable", "--seed", "0"]
@@ -2375,7 +2396,7 @@ def k8_per_forward(cfg):
 
 
 def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
-                        layers=None):
+                        layers=None, trace_requests=None):
     """Full-width ``arch`` (bf16, random weights from a seed; its first
     ``layers`` layers when given, else all) through
     ``repro_torch.launch.serve``'s code path: the mutable policy, 4 slots,
@@ -2383,7 +2404,9 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
     each.  Each prefill must launch K5 once per attention layer, K6 once
     per rwkv6 layer, K7 once per mamba layer and K8 :func:`k8_per_forward`
     times, and each decode step K6 and K8 alike and K7 never.  The idle
-    share comes from a second, traced pass of the same traffic.  The
+    share comes from a second, traced pass of the same traffic, or, with
+    ``trace_requests``, of its first ``trace_requests`` requests (timed
+    untraced too: the share is over that pass's own seconds).  The
     parameter count must equal ``models.param_count``."""
     from repro_torch.configs import base as CB
     from repro_torch.launch import serve
@@ -2463,9 +2486,18 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
              f"{k7 - k7_pre} K7 / {k8_pre} + {k8 - k8_pre} K8 launches for "
              f"{len(prefill_ms)} prefills and {len(step_ms)} decode steps")
     seconds = out["seconds"]
+    traced_args, traced_base = args, seconds
+    if trace_requests is not None:
+        traced_args = argparse.Namespace(**{**vars(args),
+                                            "requests": trace_requests})
+        torch.cuda.synchronize()
+        t_short = time.perf_counter()
+        serve.run(traced_args, cfg, engine)
+        torch.cuda.synchronize()
+        traced_base = time.perf_counter() - t_short
     t_trace = time.perf_counter()
     res, busy, k5_s, k6_s, k7_s, k8_s = profiled(
-        lambda: serve.run(args, cfg, engine), "flash_attention_kernel",
+        lambda: serve.run(traced_args, cfg, engine), "flash_attention_kernel",
         "rwkv6_scan_kernel", "mamba_scan_kernel", "rmsnorm_kernel")
     trace_s = time.perf_counter() - t_trace
     traced = busy > 0.0
@@ -2493,6 +2525,8 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
           "window_trace_tail": out["stats"].window_trace[-8:],
           "init_peak_bytes": init_peak, "peak_bytes": peak,
           "build_seconds": build_s,
+          "traced_requests": traced_args.requests,
+          "traced_pass_seconds": traced_base,
           "traced_seconds": res["seconds"],
           "trace_and_read_seconds": trace_s,
           "device_busy_seconds": busy if traced else None,
@@ -2500,7 +2534,7 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
           "k6_device_seconds": k6_s if traced else None,
           "k7_device_seconds": k7_s if traced else None,
           "k8_device_seconds": k8_s if traced else None,
-          "device_idle_share": 1.0 - busy / seconds if traced else None,
+          "device_idle_share": 1.0 - busy / traced_base if traced else None,
           "phase_seconds": time.perf_counter() - t0})
     return {"k5": k5, "k5_tc": k5_tc,
             "k6_prefill": k6_pre, "k6_decode": k6 - k6_pre,
@@ -2944,16 +2978,19 @@ def whisper_frames(cfg, B, seed):
 
 def widen_cache(cfg, cache1, max_seq, device):
     """The prefill cache in ``init_cache(B, max_seq)``: its self-attention
-    k / v copied into the first slots, its cross-attention k / v carried
-    over (the empty ones dropped)."""
+    k / v copied into the first slots, every other entry (rwkv6 and mamba
+    states, the cross-attention's k / v) carried over (the empty ones
+    dropped).  On a mesh of world size 1 every block is the whole
+    tensor."""
     from repro_torch import models
     big = models.init_cache(cfg, cache1["len"].shape[0], max_seq,
                             device=device)
-    S = cache1["layers"][0]["k"].shape[2]
     for b, c in zip(big["layers"], cache1["layers"]):
-        b["k"][:, :, :S] = c["k"]
-        b["v"][:, :, :S] = c["v"]
-        b["enc_k"], b["enc_v"] = c["enc_k"], c["enc_v"]
+        for k, t in c.items():
+            if k in ("k", "v"):
+                b[k][:, :, :t.shape[2]] = t
+            else:
+                b[k] = t
     big["len"] = cache1["len"].clone()
     return big
 
@@ -3852,7 +3889,7 @@ MESH_INT8_TOL = 5e-2
 #: attention keeps its scores and numerator in f32 where the no-mesh
 #: branch rounds them to bf16: ROADMAP C17) and greedy tokens equal
 #: wherever the no-mesh top-2 margin exceeds LM_MARGIN.
-MESH_PROMPTS, MESH_PROMPT, MESH_DECODE, MESH_MAX_SEQ = 4, 256, 8, 512
+MESH_PROMPTS, MESH_PROMPT, MESH_DECODE = 4, 256, 8
 MESH_LOGIT_TOL = 5e-2
 MESH_ROUTE_TIE = 5e-2
 LM_MARGIN = 1e-2
@@ -3862,6 +3899,22 @@ LM_MARGIN = 1e-2
 #: router's k-th and (k+1)-th probabilities differ by more than MOE_MARGIN.
 MESH_EP_TOKENS = 4096
 MESH_EP_TOL = 2e-2
+#: (e)-(h): the mixers, the encoder-decoder and the kv-head split on the
+#: mesh, each against the same run without it.  Decode as (c) at
+#: MESH_PROMPTS x MESH_PROMPT tokens (whisper: MESH_WHISPER_CLIPS clips of
+#: 1500 frames and a MESH_WHISPER_PROMPT-token prompt); (e)'s Adafactor
+#: step at TRAIN_BATCH x TRAIN_SEQ as (a), its factored moments (means of
+#: squared gradients) within MESH_MOMENT_TOL x max|no-mesh| of each leaf,
+#: twice (a)'s gradient tolerance.  (f) is jamba cut to its first
+#: MESH_JAMBA_LAYERS layers (mamba + dense FFN, mamba + MoE FFN), so that
+#: both runs fit on the card one after the other.  (h) serves granite with
+#: ``kvseq`` unset: at world size 1 every dim divides the model axis, so
+#: the rules give it the cache's kv heads only so.
+MESH_RWKV6 = "rwkv6-1.6b"
+MESH_JAMBA_LAYERS = 2
+MESH_WHISPER_CLIPS, MESH_WHISPER_PROMPT = 2, 4
+MESH_MOMENT_TOL = 2 * MESH_GRAD_TOL
+MESH_KVHEADS = {"kvseq": None}
 
 
 def mesh_counts():
@@ -4047,25 +4100,45 @@ def mesh_train_part(cfg, mesh, batches):
                      for k in ("k5", "k5_tc", "k8")}}
 
 
-def mesh_decode_part(cfg, mesh, prompts):
-    """(c): prefill and MESH_DECODE greedy steps under the serve rules on
-    the mesh against the same run without it, both fed the no-mesh
-    tokens.  The two runs round bf16 differently (the two attention
-    branches), so a near-tie in the router could send a token to another
-    expert and move its logits by a whole expert's share: the no-mesh
-    run's choices are recorded call by call and replayed in the mesh run,
-    whose gates come from its own router probabilities.  Where the mesh's
-    own choice would differ, the replayed one must be a near-tie
-    (MESH_ROUTE_TIE)."""
+def mesh_decode_part(cfg, mesh, batch, key="decode", overrides=None,
+                     seed=1):
+    """(c), and (e)-(h)'s decode: prefill of ``batch`` and MESH_DECODE
+    greedy steps under ``rules_for(..., "decode", overrides)`` on the mesh
+    against the same run without it, both fed the no-mesh tokens.  The two
+    runs round bf16 differently (the two attention branches), so a
+    near-tie in a MoE router could send a token to another expert and
+    move its logits by a whole expert's share: the no-mesh run's choices
+    are recorded call by call and replayed in the mesh run, whose gates
+    come from its own router probabilities.  Where the mesh's own choice
+    would differ, the replayed one must be a near-tie (MESH_ROUTE_TIE).
+    Each forward's launches: K5 on every attention layer of a prefill (an
+    encoder-decoder's encoder too), all on the tensor cores, none in
+    decode; K6 on every rwkv6 layer, K7 on every mamba layer of a prefill
+    and none in decode; K8 ``k8_per_forward`` a forward (none in an
+    encoder-decoder, whose norms are LayerNorms)."""
     from repro_torch import models
     from repro_torch.models import moe
+    from repro_torch.models.transformer import moe_layer_count
     from repro_torch.sharding import comm, layout, profiles
     from repro_torch.sharding import specs as sh
-    rules = profiles.rules_for(cfg, mesh, "decode")
-    B, S = prompts.shape
-    L = cfg.num_layers
+    rules = profiles.rules_for(cfg, mesh, "decode", overrides)
+    B, S = batch["tokens"].shape
+    n_route = (0 if cfg.is_encoder_decoder else moe_layer_count(cfg)) \
+        * (MESH_DECODE + 1)
+    if cfg.is_encoder_decoder:
+        k5 = cfg.encoder_layers + cfg.num_layers
+        want_pre = {"k5": k5, "k5_tc": k5, "k8": 0, "k6": 0, "k7": 0}
+        want_dec = {"k5": 0, "k5_tc": 0, "k8": 0, "k6": 0, "k7": 0}
+    else:
+        n = mixer_counts(cfg)
+        k8 = k8_per_forward(cfg)
+        want_pre = {"k5": n["attention"], "k5_tc": n["attention"],
+                    "k8": k8, "k6": n["rwkv6"], "k7": n["mamba"]}
+        want_dec = {"k5": 0, "k5_tc": 0, "k8": k8, "k6": n["rwkv6"],
+                    "k7": 0}
     out = {}
     feed = None
+    kv_spec = None
     real_route = moe.route
     recorded, replay = [], {"calls": 0, "tokens": 0, "rerouted": 0,
                             "worst_tie": 0.0}
@@ -4098,7 +4171,7 @@ def mesh_decode_part(cfg, mesh, prompts):
     for name in ("no_mesh", "mesh"):
         t0 = time.perf_counter()
         model = models.init_params(
-            cfg, torch.Generator(device=DEV).manual_seed(1), DEV)
+            cfg, torch.Generator(device=DEV).manual_seed(seed), DEV)
         ctx = contextlib.ExitStack()
         if name == "mesh":
             ctx.enter_context(sh.use_mesh(mesh, rules))
@@ -4108,15 +4181,13 @@ def mesh_decode_part(cfg, mesh, prompts):
         try:
             with ctx, torch.no_grad():
                 zero_counts()
-                logits, pre = models.prefill(cfg, model,
-                                             {"tokens": prompts})
+                logits, pre = models.prefill(cfg, model, batch)
                 torch.cuda.synchronize()
                 counts = [mesh_counts()]
-                cache = models.init_cache(cfg, B, MESH_MAX_SEQ, DEV)
-                for c, p in zip(cache["layers"], pre["layers"]):
-                    for k in ("k", "v"):
-                        c[k][:, :, :S] = p[k]
-                cache["len"].copy_(pre["len"])
+                cache = widen_cache(cfg, pre, S + MESH_DECODE, DEV)
+                first = cache["layers"][0]
+                if name == "mesh" and "k" in first:
+                    kv_spec = comm.spec_of(first["k"])
                 seen = [logits.float()]
                 if feed is None:
                     feed = [logits.argmax(-1)]
@@ -4136,10 +4207,9 @@ def mesh_decode_part(cfg, mesh, prompts):
         del model, cache, pre
         gc.collect()
         torch.cuda.empty_cache()
-        want_pre = {"k5": L, "k5_tc": L, "k8": 2 * L + 1, "k6": 0, "k7": 0}
-        want_dec = {"k5": 0, "k5_tc": 0, "k8": 2 * L + 1, "k6": 0, "k7": 0}
         if counts[0] != want_pre or any(c != want_dec for c in counts[1:]):
-            fail(f"mesh_world1 (c, {name}): launches {counts}")
+            fail(f"mesh_world1 ({key}, {name}): launches {counts}, want "
+                 f"{want_pre} then {want_dec}")
     ref, got = out["no_mesh"]["logits"], out["mesh"]["logits"]
     scale = float(ref.abs().max())
     err = float((got - ref).abs().max())
@@ -4148,16 +4218,18 @@ def mesh_decode_part(cfg, mesh, prompts):
     agree = bool((got.argmax(-1) == ref.argmax(-1))[clear].all())
     if not (err <= MESH_LOGIT_TOL * scale and agree
             and bool(torch.isfinite(got).all())
-            and replay["calls"] == len(recorded) == L * (MESH_DECODE + 1)
+            and replay["calls"] == len(recorded) == n_route
             and replay["worst_tie"] <= MESH_ROUTE_TIE):
-        fail(f"mesh_world1 (c): logits max|d| {err} (scale {scale}), "
+        fail(f"mesh_world1 ({key}): logits max|d| {err} (scale {scale}), "
              f"greedy agree {agree}, routing replayed {replay} of "
-             f"{len(recorded)} calls")
+             f"{len(recorded)} calls (want {n_route})")
     mesh_counts_sum = {k: sum(c[k] for c in out["mesh"]["counts"])
-                       for k in ("k5", "k5_tc", "k8")}
-    return {"decode": {
+                       for k in ("k5", "k5_tc", "k8", "k6", "k7")}
+    return {key: {
+        "arch": cfg.name, "layers": cfg.num_layers,
         "rules": rules.__dict__, "prompts": B, "prompt_tokens": S,
-        "decode_steps": MESH_DECODE, "max_seq": MESH_MAX_SEQ,
+        "decode_steps": MESH_DECODE, "max_seq": S + MESH_DECODE,
+        "kv_cache_spec": kv_spec,
         "forwards_rows": clear.numel(),
         "route_calls_replayed": replay["calls"],
         "routed_tokens": replay["tokens"],
@@ -4166,10 +4238,104 @@ def mesh_decode_part(cfg, mesh, prompts):
         "route_tie_limit": MESH_ROUTE_TIE,
         "logits_max_abs_diff": err,
         "logits_scale": scale, "logit_tol_over_scale": MESH_LOGIT_TOL,
+        "bit_equal": bool(torch.equal(got, ref)),
         "greedy_compared": int(clear.sum()), "greedy_equal": agree,
+        "launches_prefill": out["mesh"]["counts"][0],
+        "launches_decode_step": out["mesh"]["counts"][1],
         "seconds_no_mesh": out["no_mesh"]["seconds"],
         "seconds_mesh": out["mesh"]["seconds"]},
         "launches": mesh_counts_sum}
+
+
+def mesh_adafactor_part(cfg, mesh, batch):
+    """(e)'s step: one Adafactor step of ``cfg`` at TRAIN_BATCH x
+    TRAIN_SEQ under ``rules_for(..., "train")`` against the same step
+    without the mesh from one seed: loss within MESH_LOSS_RTOL relative,
+    grad_norm within MESH_GNORM_RTOL, each leaf within MESH_PARAM_TOL x
+    max|no-mesh| (or 3 x the learning rate, at most MESH_SIGN_SHARE of the
+    elements, as (a)), each factored moment ``v_row`` / ``v_col`` within
+    MESH_MOMENT_TOL x max|no-mesh| of its leaf; K6 a layer and K8 two a
+    layer in the forward and again in the remat recompute, K8 once more
+    for the final norm."""
+    import math
+
+    from repro_torch.launch import train as LT
+    from repro_torch.sharding import profiles
+    from repro_torch.train import TrainConfig, init_state
+    rules = profiles.rules_for(cfg, mesh, "train")
+    tcfg = TrainConfig(optimizer="adafactor")
+    L, again = cfg.num_layers, int(cfg.remat != "none")
+    n = mixer_counts(cfg)
+    want = {"k5": n["attention"] * (1 + again),
+            "k5_tc": n["attention"] * (1 + again),
+            "k8": (2 * L + 1) + 2 * L * again,
+            "k6": n["rwkv6"] * (1 + again), "k7": n["mamba"] * (1 + again)}
+    runs = {}
+    for name, m in (("no_mesh", None), ("mesh", mesh)):
+        t0 = time.perf_counter()
+        state = init_state(cfg, tcfg, torch.Generator(device=DEV)
+                           .manual_seed(0), DEV)
+        step = LT.build(cfg, tcfg, m, rules if m is not None else None)
+        zero_counts()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        counts = mesh_counts()
+        runs[name] = {
+            "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            "lr": float(met["lr"]), "counts": counts,
+            "params": stacked_params(cfg, state["params"]),
+            "moments": {k: {p: t.clone() for p, t in v.items()}
+                        for k, v in state["opt"]["v"].items()
+                        if "v_row" in v},
+            "seconds": time.perf_counter() - t0}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if counts != want or not math.isfinite(runs[name]["loss"]):
+            fail(f"mesh_world1 (e, Adafactor, {name}): launches {counts}, "
+                 f"want {want}; loss {runs[name]['loss']}")
+    ref, got = runs["no_mesh"], runs["mesh"]
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    gnorm_rel = abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    loose = total = 0
+    param_rel, bit_equal = 0.0, True
+    for k, t in ref["params"].items():
+        d = (got["params"][k].float() - t.float()).abs()
+        over = d > MESH_PARAM_TOL * float(t.float().abs().max())
+        if bool((d[over] > 3.0 * ref["lr"]).any()):
+            fail(f"mesh_world1 (e, Adafactor): leaf {k}: max|d| "
+                 f"{float(d.max())}, scale {float(t.abs().max())}")
+        loose += int(over.sum())
+        total += d.numel()
+        param_rel = max(param_rel, float(d.max()) / max(
+            float(t.float().abs().max()), 1e-30))
+        bit_equal = bit_equal and torch.equal(got["params"][k], t)
+    moment_rel = 0.0
+    for k, m in ref["moments"].items():
+        for p, t in m.items():
+            moment_rel = max(moment_rel, float(
+                (got["moments"][k][p] - t).abs().max()) / max(
+                float(t.abs().max()), 1e-30))
+    if not (loss_rel <= MESH_LOSS_RTOL and gnorm_rel <= MESH_GNORM_RTOL
+            and loose <= MESH_SIGN_SHARE * total
+            and moment_rel <= MESH_MOMENT_TOL and ref["moments"]):
+        fail(f"mesh_world1 (e, Adafactor): loss rel {loss_rel}, grad_norm "
+             f"rel {gnorm_rel}, {loose} of {total} elements past "
+             f"{MESH_PARAM_TOL}, moments {moment_rel} of their leaf's "
+             f"scale ({len(ref['moments'])} factored leaves)")
+    return {"rwkv6_adafactor": {
+        "arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "rules": rules.__dict__, "loss_no_mesh": ref["loss"],
+        "loss_mesh": got["loss"], "loss_rel": loss_rel,
+        "grad_norm_no_mesh": ref["grad_norm"], "grad_norm_rel": gnorm_rel,
+        "param_max_over_scale": param_rel,
+        "elements_within_lr_only": loose, "elements": total,
+        "factored_leaves": len(ref["moments"]),
+        "moment_max_over_leaf_scale": moment_rel,
+        "moment_tol": MESH_MOMENT_TOL, "bit_equal": bit_equal,
+        "launches_per_step": got["counts"],
+        "seconds_no_mesh": ref["seconds"], "seconds_mesh": got["seconds"]},
+        "launches": got["counts"]}
 
 
 def mesh_ep_part(cfg, mesh):
@@ -4265,8 +4431,19 @@ def phase_mesh_world1():
     (d) ``moe_ep`` on one MoE layer (MESH_EP_TOKENS bf16 tokens, E 32, top
     8, capacity factor 1.25) on the card against the CPU: kept assignments
     equal where the router gap exceeds MOE_MARGIN, outputs within
-    MESH_EP_TOL x max|CPU|, the dropped share.  Each part's seconds, the
-    phase's peak bytes."""
+    MESH_EP_TOL x max|CPU|, the dropped share.
+    (e) rwkv6-1.6b at full width and depth, bf16: (c)'s decode (K6 24 and
+    K8 49 a forward, on the rank's heads) and one Adafactor step of
+    TRAIN_BATCH x TRAIN_SEQ tokens (loss, leaves and the factored moments
+    against the no-mesh step).  (f) jamba-1.5-large at full width cut to
+    MESH_JAMBA_LAYERS layers (mamba + dense FFN, mamba + MoE FFN): (c)'s
+    decode, K7 2 a prefill and none in decode, K8 on the gated norm.  (g)
+    whisper-large-v3 at full width and depth, bf16: MESH_WHISPER_CLIPS
+    clips of 1500 frames and a MESH_WHISPER_PROMPT-token prompt, then
+    MESH_DECODE greedy steps; K5 64 a prefill, all on the tensor cores,
+    none in decode.  (h) granite's decode on a cache split over its kv
+    heads (rules MESH_KVHEADS), as (c).  Each part's seconds and
+    launches, the phase's peak bytes and each part's."""
     import shutil
 
     import torch.distributed as dist
@@ -4280,9 +4457,28 @@ def phase_mesh_world1():
                                         seq_len=TRAIN_SEQ,
                                         global_batch=TRAIN_BATCH))
     batches = [corpus.batch_at(i) for i in range(MESH_TRAIN_STEPS)]
+    gen = torch.Generator().manual_seed(4)
     prompts = torch.randint(0, cfg.vocab_size, (MESH_PROMPTS, MESH_PROMPT),
-                            generator=torch.Generator().manual_seed(4)).to(
-        DEV)
+                            generator=gen).to(DEV)
+    rwkv6 = CB.get_config(MESH_RWKV6)
+    full = CB.get_config(JAMBA)
+    jamba = full.replace(num_layers=MESH_JAMBA_LAYERS,
+                         pattern=full.pattern[:MESH_JAMBA_LAYERS])
+    whisper = CB.get_config(WHISPER)
+    rwkv6_prompts = torch.randint(0, rwkv6.vocab_size,
+                                  (MESH_PROMPTS, MESH_PROMPT),
+                                  generator=gen).to(DEV)
+    jamba_prompts = torch.randint(0, jamba.vocab_size,
+                                  (MESH_PROMPTS, MESH_PROMPT),
+                                  generator=gen).to(DEV)
+    whisper_batch = {
+        "tokens": torch.randint(0, whisper.vocab_size,
+                                (MESH_WHISPER_CLIPS, MESH_WHISPER_PROMPT),
+                                generator=gen).to(DEV),
+        "frames": whisper_frames(whisper, MESH_WHISPER_CLIPS, 5).to(DEV)}
+    rwkv6_batch = SyntheticCorpus(DataConfig(
+        vocab_size=rwkv6.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH)).batch_at(0)
     tmp = tempfile.mkdtemp(prefix="mesh_world1_")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4290,26 +4486,54 @@ def phase_mesh_world1():
     dist.init_process_group("cpu:gloo,cuda:nccl",
                             init_method=f"file://{tmp}/store", rank=0,
                             world_size=1)
+    parts, seconds, peaks = {}, {}, {}
+
+    def run(name, fn, *args, **kw):
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t1
+        peaks[name] = torch.cuda.max_memory_allocated()
+        parts[name] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
     try:
         t1 = time.perf_counter()
         mesh = make_test_mesh(1, 1, pod=1)
         mesh_s = time.perf_counter() - t1
-        train = mesh_train_part(cfg, mesh, batches)
-        decode = mesh_decode_part(cfg, mesh, prompts)
-        ep = mesh_ep_part(cfg, mesh)
+        run("a_b", mesh_train_part, cfg, mesh, batches)
+        run("c", mesh_decode_part, cfg, mesh, {"tokens": prompts})
+        run("d", mesh_ep_part, cfg, mesh)
+        run("e_decode", mesh_decode_part, rwkv6, mesh,
+            {"tokens": rwkv6_prompts}, key="rwkv6_decode")
+        run("e_train", mesh_adafactor_part, rwkv6, mesh, rwkv6_batch)
+        run("f", mesh_decode_part, jamba, mesh, {"tokens": jamba_prompts},
+            key="jamba_decode")
+        run("g", mesh_decode_part, whisper, mesh, whisper_batch,
+            key="whisper_decode")
+        run("h", mesh_decode_part, cfg, mesh, {"tokens": prompts},
+            key="kvheads_decode", overrides=MESH_KVHEADS)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
-    peak = torch.cuda.max_memory_allocated()
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches = {k: train["launches"][k] + decode["launches"][k]
-                for k in ("k5", "k5_tc", "k8")}
+    peak = max(peaks.values())
+    spec = parts["h"]["kvheads_decode"]["kv_cache_spec"]
+    if spec is None or spec[1] is None or spec[2] is not None:
+        fail(f"mesh_world1 (h): the cache's spec {spec} does not split its "
+             f"kv heads alone")
+    launches = {k: sum(p["launches"].get(k, 0) for p in parts.values()
+                       if "launches" in p)
+                for k in ("k5", "k5_tc", "k8", "k6", "k7")}
+    body = {}
+    for p in parts.values():
+        body.update({k: v for k, v in p.items() if k != "launches"})
     emit({"phase": "mesh_world1", "arch": MESH_ARCH, "mesh": mesh.shape,
           "backend": "cpu:gloo,cuda:nccl", "world_size": 1,
-          "mesh_seconds": mesh_s, **{k: v for k, v in train.items()
-                                     if k != "launches"},
-          **{k: v for k, v in decode.items() if k != "launches"}, **ep,
+          "mesh_seconds": mesh_s, **body,
+          "part_seconds": seconds, "part_peak_bytes": peaks,
           "launches": launches, "peak_bytes": peak,
           "seconds": time.perf_counter() - t0})
     return launches
@@ -4757,14 +4981,16 @@ def main():
     serve_launches = phase_serve_at_size()
     scan_err = phase_rwkv6_scan_vs_plain()
     phase_rwkv6_lm_vs_plain()
-    rwkv6_launches = phase_serve_at_size("serve_rwkv6_at_size", "rwkv6-1.6b")
+    rwkv6_launches = phase_serve_at_size("serve_rwkv6_at_size", "rwkv6-1.6b",
+                                         trace_requests=TRACE_REQUESTS)
     mamba_err = phase_mamba_scan_vs_plain()
     phase_jamba_lm_vs_plain()
     phase_moe_lm_vs_plain()
     jamba_launches = phase_serve_at_size("serve_jamba_at_size", JAMBA,
                                          JAMBA_LAYERS)
     granite_launches = phase_serve_at_size("serve_granite_at_size",
-                                           MESH_ARCH)
+                                           MESH_ARCH,
+                                           trace_requests=TRACE_REQUESTS)
     phase_whisper_lm_vs_plain()
     whisper_launches = phase_serve_whisper_at_size()
     t_train = time.perf_counter()
@@ -4821,8 +5047,9 @@ def main():
                 granite_launches["k8_prefill"] + granite_launches["k8_decode"])
             entry["mesh_launches"] = mesh_launches[k]
         elif entry["name"] in ("rwkv6_scan", "mamba_scan"):
-            entry["train_launches"] = train_lm_launches[
-                "k6" if entry["name"] == "rwkv6_scan" else "k7"]
+            k = "k6" if entry["name"] == "rwkv6_scan" else "k7"
+            entry["train_launches"] = train_lm_launches[k]
+            entry["mesh_launches"] = mesh_launches[k]
         kern = entry["name"].split("_jamba")[0].split("_whisper")[0].split(
             "_decode")[0]
         if kern in grad_excess_by_kernel:

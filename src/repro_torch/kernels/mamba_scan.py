@@ -43,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.launch import costanalysis
 
 from . import lm_lib, ref
-from .grad import scan_grads
+from .grad import counting_meta, meta_grads, scan_grads
 
 #: State sizes the kernel is built for: the catalog's (16), the tiny
 #: configs' (4) and the JAX kernel tests' (8).
@@ -193,8 +193,11 @@ class MambaScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gs):
-        return (*scan_grads(ssm_chunk_scan, ctx.saved_tensors,
-                            ctx.needs_input_grad[:5], (gy, gs)), None)
+        saved, needs = ctx.saved_tensors, ctx.needs_input_grad[:5]
+        if counting_meta(saved):
+            return (*meta_grads("mamba_scan_grad", saved, needs,
+                                meta_cost(*saved)), None)
+        return (*scan_grads(ssm_chunk_scan, saved, needs, (gy, gs)), None)
 
 
 def mamba_scan(dt, x, Bm, Cm, a, *, chunk: int = 64):

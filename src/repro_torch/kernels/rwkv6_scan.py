@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.launch import costanalysis
 
 from . import lm_lib, ref
-from .grad import scan_grads
+from .grad import counting_meta, meta_grads, scan_grads
 
 #: Head dims the kernel is built for: the catalog's (64) and the tiny
 #: configs' (16).
@@ -187,8 +187,11 @@ class RWKV6Scan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gs):
-        return (*scan_grads(wkv_chunk_scan, ctx.saved_tensors,
-                            ctx.needs_input_grad[:6], (gy, gs)), None)
+        saved, needs = ctx.saved_tensors, ctx.needs_input_grad[:6]
+        if counting_meta(saved):
+            return (*meta_grads("rwkv6_scan_grad", saved, needs,
+                                meta_cost(*saved)), None)
+        return (*scan_grads(wkv_chunk_scan, saved, needs, (gy, gs)), None)
 
 
 def rwkv6_scan(r, k, v, w, u, s0=None, *, chunk: int = 64):

@@ -31,8 +31,7 @@ that share the arguments' storage (the state the train step updates in
 place, the cache a decode step writes); ``temp_bytes`` the most bytes the
 step allocates and holds at once, less its new outputs.  A cell whose
 step raises is ``failed`` and the sweep goes on; ``--all`` exits 1 if any
-cell failed.  The cells of mamba, rwkv6, encoder-decoder and Adafactor
-raise ``NotImplementedError`` on a mesh (ROADMAP.md A13).
+cell failed.
 """
 
 from __future__ import annotations

@@ -23,11 +23,14 @@ that decode reads k as a plain batched-matrix operand;
   ``heads`` (K5 on the local heads), ``wo`` row-parallel and summed over
   the axis.  Where the kv heads do not split with the query heads, k / v
   are computed whole and each rank takes its query heads' groups.  Decode
-  is the reference's mesh branch of :func:`decode_attention_cp`: the
-  cache is split over ``kvseq``; the rank writes the new token's k / v
+  is the reference's mesh branch of :func:`decode_attention_cp`: where
+  the cache is split over ``kvseq`` the rank writes the new token's k / v
   only where its shard owns the slot, takes a local masked max, and
   combines max, denominator and numerator over the ``kvseq`` axes, never
-  expanding the GQA groups.
+  expanding the GQA groups; where it is split over ``kvheads`` (the rules
+  give them the axis when ``kvseq`` does not divide the positions) the
+  rank holds its kv heads over every position, with the query heads of
+  their groups, and attends locally.
 
 * **Cross-attention** (:func:`cross_attention`, the encoder-decoder
   stacks) is plain tensor code, as the reference's ``attend_dense`` is: a
@@ -35,7 +38,8 @@ that decode reads k as a plain batched-matrix operand;
   :func:`project_enc_kv` gives the encoder's k / v in the cache layout
   (B, KV, S_enc, hd).  The encoder's own self-attention is
   :func:`self_attention` with ``causal=False, use_rope=False``: K5 on the
-  card.
+  card.  Under a mesh both run on the rank's heads where ``wq`` / ``wk``
+  split them, as self-attention does.
 """
 
 from __future__ import annotations
@@ -101,7 +105,8 @@ def _q(acfg: AttentionConfig, params, x, positions, rope_theta, norm_eps):
     if acfg.qkv_bias:
         q = q + params["bq"]
     if acfg.qk_norm:
-        q = rmsnorm(q, params["q_norm"], norm_eps)
+        # replicated, applied to the rank's heads: its gradient sums
+        q = rmsnorm(q, comm.copy(params["q_norm"], heads), norm_eps)
     if acfg.use_rope:
         q = apply_rope(q, positions, rope_theta)
     return q
@@ -115,7 +120,7 @@ def _kv(acfg: AttentionConfig, params, x, positions, rope_theta, norm_eps):
     if acfg.qkv_bias:
         k, v = k + params["bk"], v + params["bv"]
     if acfg.qk_norm:
-        k = rmsnorm(k, params["k_norm"], norm_eps)
+        k = rmsnorm(k, comm.copy(params["k_norm"], kvheads), norm_eps)
     if acfg.use_rope:
         k = apply_rope(k, positions, rope_theta)
     return k, v
@@ -240,28 +245,36 @@ def decode_attention_cp(acfg: AttentionConfig, params, x, cache_k, cache_v,
     return y, cache_k, cache_v
 
 
+def _regroup(t, dim: int, have: tuple, want: tuple):
+    """``t``'s heads (dim ``dim``) split over ``have`` as split over
+    ``want`` instead."""
+    if have == want:
+        return t
+    return comm.split(comm.gather(t, dim, have), dim, want)
+
+
 def _decode_attention_mesh(acfg: AttentionConfig, params, x, cache_k,
                            cache_v, k_new, v_new, cache_len, window: int,
                            rope_theta, norm_eps):
-    """Context-parallel flash-decode on this rank's block of the cache
-    (B, KV, S_loc, hd), its sequence split over the ``kvseq`` axes its
-    spec names: the new token's k / v written only by the shard that owns
-    the slot (in place), a local masked partial softmax, then the max, the
-    denominator and the numerator combined over those axes.  Scores and
-    the numerator accumulate in f32 (the reference's
+    """Flash-decode on this rank's block of the cache (B, KV_loc, S_loc,
+    hd), its kv heads split over the ``kvheads`` axes and its sequence
+    over the ``kvseq`` axes its spec names.  The rank takes the query
+    heads of its kv heads' groups and their new k / v; the new token's
+    k / v are written only by the shard that owns the slot (in place);
+    then a local masked partial softmax, whose max, denominator and
+    numerator are combined over the ``kvseq`` axes.  Scores and the
+    numerator accumulate in f32 (the reference's
     ``preferred_element_type``); the groups are never expanded."""
-    spec = comm.spec_of(cache_k)
-    if spec is not None and spec[1] is not None:
-        raise NotImplementedError(
-            f"decode on a cache split over its kv heads ({spec[1]!r}): the "
-            f"mesh branch splits the cache over kvseq (ROADMAP.md A13)")
-    kv_axes = () if spec is None else comm.entry_axes(spec[2])
+    spec = comm.spec_of(cache_k) or (None,) * 4
+    head_axes = comm.entry_axes(spec[1])
+    kv_axes = comm.entry_axes(spec[2])
     B, KV, S_loc, hd = cache_k.shape
-    H = acfg.num_heads
+    H = acfg.num_heads * KV // acfg.num_kv_heads
     pos = (cache_len - 1).long()
     heads = comm.split_axes(params["wq"], 1)
-    q = comm.gather(_q(acfg, params, x, pos[:, None], rope_theta, norm_eps),
-                    2, heads)                              # (B, 1, H, hd)
+    q = _regroup(_q(acfg, params, x, pos[:, None], rope_theta, norm_eps), 2,
+                 heads, head_axes)                         # (B, 1, H, hd)
+    k_new, v_new = (comm.split(t, 2, head_axes) for t in (k_new, v_new))
     base = comm.axes_index(kv_axes) * S_loc if kv_axes else 0
     local = pos - base
     fits = ((local >= 0) & (local < S_loc))[:, None, None]
@@ -287,7 +300,7 @@ def _decode_attention_mesh(acfg: AttentionConfig, params, x, cache_k,
     num = comm.reduce(p.to(cache_v.dtype).float() @ cache_v.float(),
                       kv_axes)                            # (B, KV, g, hd)
     out = (num / torch.clamp_min(den, 1e-30)).reshape(B, 1, H, hd)
-    out = comm.split(out.to(q.dtype), 2, heads)
+    out = _regroup(out.to(q.dtype), 2, head_axes, heads)
     return _out_project(acfg, params, out, x.dtype), cache_k, cache_v
 
 
@@ -307,26 +320,44 @@ def _grouped_attention(acfg: AttentionConfig, q, k, v):
     return out.reshape(B, H, Sq, hd).transpose(1, 2)
 
 
+def _enc_kv_for_heads(acfg: AttentionConfig, params, k, v):
+    """The encoder k / v (B, KV, S_enc, hd) that the rank's query heads
+    read: as they are, unless the query heads split and the kv heads do
+    not; then each rank takes its query heads' groups."""
+    heads = comm.split_axes(params["wq"], 1)
+    if not heads or comm.split_axes(params["wk"], 1):
+        return k, v
+    g = acfg.num_heads // acfg.num_kv_heads
+    return (comm.split(t.repeat_interleave(g, dim=1), 1, heads)
+            for t in (k, v))
+
+
 def cross_attention(acfg: AttentionConfig, params, x, enc_kv,
                     norm_eps: float = 1e-6):
     """Decoder cross-attention.  x: (B, S, D); enc_kv = (k, v), each (B, KV,
-    S_enc, hd), projected once per sequence (:func:`project_enc_kv`)."""
-    q = _project(x, params["wq"])
+    S_enc, hd), projected once per sequence (:func:`project_enc_kv`; under
+    a mesh the rank's kv heads)."""
+    heads = comm.split_axes(params["wq"], 1)
+    q = _project(comm.copy(x, heads), comm.weight(params["wq"]))
     if acfg.qkv_bias:
         q = q + params["bq"]
     if acfg.qk_norm:
-        q = rmsnorm(q, params["q_norm"], norm_eps)
-    out = _grouped_attention(acfg, q, *enc_kv)
+        q = rmsnorm(q, comm.copy(params["q_norm"], heads), norm_eps)
+    out = _grouped_attention(acfg, q, *_enc_kv_for_heads(acfg, params,
+                                                         *enc_kv))
     return _out_project(acfg, params, out, x.dtype)
 
 
 def project_enc_kv(acfg: AttentionConfig, params, enc_out):
     """The cross-attention k / v of the encoder's output (B, S_enc, D), each
-    (B, KV, S_enc, hd)."""
-    k = _project(enc_out, params["wk"])
-    v = _project(enc_out, params["wv"])
+    (B, KV, S_enc, hd); under a mesh the rank's kv heads where ``wk``
+    splits them."""
+    kvheads = comm.split_axes(params["wk"], 1)
+    x = comm.copy(enc_out, kvheads)
+    k = _project(x, comm.weight(params["wk"]))
+    v = _project(x, comm.weight(params["wv"]))
     if acfg.qkv_bias:
         k, v = k + params["bk"], v + params["bv"]
     if acfg.qk_norm:
-        k = rmsnorm(k, params["k_norm"])
+        k = rmsnorm(k, comm.copy(params["k_norm"], kvheads))
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()

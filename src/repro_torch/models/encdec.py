@@ -22,8 +22,17 @@ projection of the encoder's output, read only.
 :mod:`repro_torch.models.convert` maps it to the reference's stacked
 ``{"k", "v", "enc_kv", "len"}``.
 
-The stacks do not run on a mesh: every entry point raises
-``NotImplementedError`` under ``specs.use_mesh`` (ROADMAP.md A13).
+Under a mesh (:func:`repro_torch.sharding.specs.use_mesh`, the parameters
+cut by :func:`repro_torch.sharding.layout.shard_model`) the functions take
+and return the rank's rows of the batch.  Self- and cross-attention split
+their heads over ``heads`` / ``kvheads`` where the axis divides them and
+otherwise keep them whole on every rank (whisper's 20 heads on a 16-way
+axis); the MLPs are column-parallel in (``b_in`` split) and row-parallel
+out, ``b_out`` added after the sum; the LayerNorms are replicated and the
+logits come back whole over the vocabulary.  The cache is the rank's
+block: ``k`` / ``v`` as a decoder-only stack's (decode through the mesh
+branch of ``decode_attention_cp``), ``enc_k`` / ``enc_v`` over the kv heads
+the cross-attention's ``wk`` holds.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from . import attention as attn
 from .layers import (chunked_xent, dtype_of, embed, init_embed,
                      init_mlp_nogate, layernorm, mlp_nogate, ones,
                      unembed_logits, zeros)
+from .transformer import len_rows, prefill_len
 
 
 def _frozen(tensors: dict) -> nn.ParameterDict:
@@ -153,9 +163,19 @@ def encode(cfg: ModelConfig, model: EncDec, frames, train: bool = False):
 
 
 def project_enc_kv_stack(cfg: ModelConfig, model: EncDec, enc_out):
-    """Per decoder layer, the cross-attention's (k, v) of ``enc_out``."""
-    return [attn.project_enc_kv(cfg.attention, p.cross_attn, enc_out)
-            for p in model.decoder]
+    """Per decoder layer, the cross-attention's (k, v) of ``enc_out``;
+    under a mesh each carrying the spec of its block (the rank's rows and
+    kv heads)."""
+    kvs = [attn.project_enc_kv(cfg.attention, p.cross_attn, enc_out)
+           for p in model.decoder]
+    if comm.active():
+        from repro_torch.sharding import layout
+        for p, kv in zip(model.decoder, kvs):
+            spec = (layout.entry(comm.batch_split()), layout.entry(
+                comm.split_axes(p.cross_attn["wk"], 1)), None, None)
+            for t in kv:
+                layout.tagged(t, spec)
+    return kvs
 
 
 # --------------------------------------------------------------------------
@@ -193,18 +213,10 @@ def decode_train(cfg: ModelConfig, model: EncDec, tokens, enc_out,
     return _ln(model.dec_norm, h)
 
 
-def _no_mesh() -> None:
-    if comm.active():
-        raise NotImplementedError(
-            "an encoder-decoder on a mesh: the port's mesh path carries "
-            "decoder-only stacks (ROADMAP.md A13)")
-
-
 def loss_fn(cfg: ModelConfig, model: EncDec, batch):
     """Next-token CE of the decoder over the encoded frames.  batch: frames
     (B, S_enc, D), tokens (B, S), labels (B, S), optional mask (B, S).
     Returns (loss, {"ce", "aux" = 0})."""
-    _no_mesh()
     enc_out = encode(cfg, model, batch["frames"].to(dtype_of(cfg.dtype)),
                      train=True)
     h = decode_train(cfg, model, batch["tokens"], enc_out, train=True)
@@ -221,7 +233,6 @@ def loss_fn(cfg: ModelConfig, model: EncDec, batch):
 def prefill(cfg: ModelConfig, model: EncDec, tokens, frames):
     """tokens (B, S), frames (B, S_enc, D) -> (last-token logits (B, V),
     cache at length S)."""
-    _no_mesh()
     enc_out = encode(cfg, model, frames.to(dtype_of(cfg.dtype)))
     enc_kv = project_enc_kv_stack(cfg, model, enc_out)
     B, S = tokens.shape
@@ -230,28 +241,39 @@ def prefill(cfg: ModelConfig, model: EncDec, tokens, frames):
     layers = []
     for p, (ek, ev) in zip(model.decoder, enc_kv):
         h, (k, v) = _dec_layer(cfg, p, h, pos, (ek, ev))
-        layers.append({"k": k.transpose(1, 2).contiguous(),
-                       "v": v.transpose(1, 2).contiguous(),
-                       "enc_k": ek, "enc_v": ev})
+        k, v = (t.transpose(1, 2).contiguous() for t in (k, v))
+        if comm.active():
+            from repro_torch.sharding import layout
+            kv = layout.prefill_kv(cfg, comm.split_axes(
+                p.self_attn["wk"], 1), k, v)
+        else:
+            kv = {"k": k, "v": v}
+        layers.append({**kv, "enc_k": ek, "enc_v": ev})
     h = _ln(model.dec_norm, h)
     logits = unembed_logits(model.embed, h[:, -1], cfg.tie_embeddings)
-    return logits, {"layers": layers,
-                    "len": torch.full((B,), S, dtype=torch.int32,
-                                      device=h.device)}
+    return logits, {"layers": layers, "len": prefill_len(B, S, h.device)}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
-    """Empty decode cache: ``max_seq`` self-attention slots and the
-    cross-attention's ``encoder_seq`` positions per decoder layer."""
-    _no_mesh()
+def cache_entry(cfg: ModelConfig, batch: int, max_seq: int, device):
+    """One decoder layer's empty (global) cache entry: ``max_seq``
+    self-attention slots and the cross-attention's ``encoder_seq``
+    positions."""
     dtype = dtype_of(cfg.dtype)
     a = cfg.attention
     kv = (batch, a.num_kv_heads, max_seq, a.head_dim)
     enc = (batch, a.num_kv_heads, cfg.encoder_seq, a.head_dim)
-    return {"layers": [{"k": zeros(kv, dtype, device),
-                        "v": zeros(kv, dtype, device),
-                        "enc_k": zeros(enc, dtype, device),
-                        "enc_v": zeros(enc, dtype, device)}
+    return {"k": zeros(kv, dtype, device), "v": zeros(kv, dtype, device),
+            "enc_k": zeros(enc, dtype, device),
+            "enc_v": zeros(enc, dtype, device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
+    """Empty decode cache (:func:`cache_entry` per decoder layer); under a
+    mesh the rank's blocks of it (``batch`` the global batch)."""
+    if comm.active():
+        from repro_torch.sharding import layout
+        return layout.init_cache(cfg, batch, max_seq, device)
+    return {"layers": [cache_entry(cfg, batch, max_seq, device)
                        for _ in range(cfg.num_layers)],
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -259,17 +281,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
 def decode_step(cfg: ModelConfig, model: EncDec, cache, tokens):
     """tokens (B, 1) -> (logits (B, V), cache').  The self-attention cache
     is updated in place."""
-    _no_mesh()
     new_len = cache["len"] + 1
-    h = _embed_tokens(cfg, model, tokens, (new_len - 1)[:, None])
+    if hasattr(cache["len"], comm.SPEC):
+        setattr(new_len, comm.SPEC, getattr(cache["len"], comm.SPEC))
+    rows_len = len_rows(cache, new_len)
+    h = _embed_tokens(cfg, model, tokens, (rows_len - 1)[:, None])
     acfg = cfg.attention
     layers = []
     for p, c in zip(model.decoder, cache["layers"]):
         hn = _ln(p.ln1, h)
-        k, v = attn.decode_project_kv(acfg, p.self_attn, hn, new_len, 1.0,
+        k, v = attn.decode_project_kv(acfg, p.self_attn, hn, rows_len, 1.0,
                                       cfg.norm_eps)
         y, ck, cv = attn.decode_attention_cp(acfg, p.self_attn, hn, c["k"],
-                                             c["v"], k, v, new_len, 0, 1.0,
+                                             c["v"], k, v, rows_len, 0, 1.0,
                                              cfg.norm_eps)
         h = h + y
         h = h + attn.cross_attention(acfg, p.cross_attn, _ln(p.ln_x, h),

@@ -273,5 +273,9 @@ def init_mlp_nogate(gen, d_model, d_ff, dtype, device):
 
 
 def mlp_nogate(params, x, act: str = "gelu"):
-    h = x @ params["w_in"] + params["b_in"]
-    return act_fn(act)(h) @ params["w_out"] + params["b_out"]
+    """Column-parallel in (``b_in`` split alike), row-parallel out where
+    ``ffn`` splits the hidden dim; ``b_out`` added after the sum."""
+    ffn = comm.split_axes(params["w_in"], 1)
+    h = comm.copy(x, ffn) @ comm.weight(params["w_in"]) + params["b_in"]
+    y = comm.reduce(act_fn(act)(h) @ comm.weight(params["w_out"]), ffn)
+    return y + params["b_out"]

@@ -15,6 +15,15 @@ follow the reference: ddlerp and decay in f32, projections in x's dtype,
 the scan in f32.
 
 Channel-mix (``rwkv_ffn``) is the squared-relu K/V gating of the paper.
+
+Under a mesh (:func:`repro_torch.sharding.specs.use_mesh`) the token
+shift, the ddlerp and the decay run whole (their parameters are
+replicated); ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` are column-parallel over
+``ffn``, so the scan (K6) and the per-head groupnorm run on the rank's
+heads, with its blocks of the decay, ``u``, ``ln_w`` and ``ln_b``; ``w_o``
+is row-parallel and summed over the axis.  The channel-mix's ``w_k`` is
+column-parallel, ``w_v`` row-parallel and summed, ``w_r`` replicated over
+``model``.  The decode state ``wkv`` holds the rank's heads.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import RWKV6Config
 from repro_torch.kernels import ops
+from repro_torch.sharding import comm
 
 from .layers import fan_in_init, normal, zeros
 
@@ -102,23 +112,38 @@ def _groupnorm(x, w, b, H: int, eps: float = 64e-5):
     return y * w + b
 
 
+def _heads_axes(params, D: int, n: int) -> tuple:
+    """The axes that split the time-mix's heads (``w_r``'s columns); a
+    head's n columns never straddle two ranks."""
+    heads = comm.split_axes(params["w_r"], 1)
+    if (D // n) % comm.axes_size(heads):
+        raise NotImplementedError(
+            f"rwkv6 heads {D // n} do not split over {heads} "
+            f"({comm.axes_size(heads)} ranks)")
+    return heads
+
+
 def rwkv6_forward(rcfg: RWKV6Config, params, x, shift_state=None,
                   wkv_state=None, return_state: bool = False):
     """x: (B, T, D).  Optional decode states (last token (B, D), S matrix
-    (B, H, n, n) f32); with ``return_state`` also returns the new ones."""
+    (B, H, n, n) f32, under a mesh the rank's heads); with
+    ``return_state`` also returns the new ones."""
     B, T, D = x.shape
-    H = D // rcfg.head_dim
+    n = rcfg.head_dim
+    heads = _heads_axes(params, D, n)
     xx = _token_shift(x, shift_state)
     xw, xk, xv, xr, xg = _ddlerp(params, x, xx)
-    w = _decay(params, xw)
-    r = xr.to(x.dtype) @ params["w_r"]
-    k = xk.to(x.dtype) @ params["w_k"]
-    v = xv.to(x.dtype) @ params["w_v"]
-    g = F.silu(xg.to(x.dtype) @ params["w_g"])
-    out, S = ops.wkv(r.float(), k.float(), v.float(), w, params["u"],
-                     rcfg.head_dim, s0=wkv_state)
-    y = _groupnorm(out, params["ln_w"], params["ln_b"], H)
-    y = (y * g.float()).to(x.dtype) @ params["w_o"]
+    w = comm.split(_decay(params, xw), 2, heads)
+    u, ln_w, ln_b = (comm.split(params[k], 0, heads)
+                     for k in ("u", "ln_w", "ln_b"))
+    r, k, v, g = (comm.copy(t.to(x.dtype), heads) @ comm.weight(params[name])
+                  for t, name in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v"),
+                                  (xg, "w_g")))
+    g = F.silu(g)
+    out, S = ops.wkv(r.float(), k.float(), v.float(), w, u, n, s0=wkv_state)
+    y = _groupnorm(out, ln_w, ln_b, out.shape[-1] // n)
+    y = (y * g.float()).to(x.dtype) @ comm.weight(params["w_o"])
+    y = comm.reduce(y, comm.split_axes(params["w_o"], 0))
     if return_state:
         return y, (x[:, -1], S)
     return y
@@ -130,9 +155,10 @@ def rwkv_ffn_forward(params, x, shift_state=None, return_state: bool = False):
     xf = x.float()
     xk = (xf + sx * params["mu_k"]).to(x.dtype)
     xr = (xf + sx * params["mu_r"]).to(x.dtype)
-    k = torch.square(F.relu(xk @ params["w_k"]))
-    kv = k @ params["w_v"]
-    y = torch.sigmoid(xr @ params["w_r"]) * kv
+    ffn = comm.split_axes(params["w_k"], 1)
+    k = torch.square(F.relu(comm.copy(xk, ffn) @ comm.weight(params["w_k"])))
+    kv = comm.reduce(k @ comm.weight(params["w_v"]), ffn)
+    y = torch.sigmoid(xr @ comm.weight(params["w_r"])) * kv
     if return_state:
         return y, x[:, -1]
     return y

@@ -38,12 +38,14 @@ split into the rank's blocks by :mod:`repro_torch.sharding.layout`) the
 functions take and return the rank's rows of the batch; the layers call
 the collectives (:mod:`repro_torch.sharding.comm`); the MoE FFN takes
 ``moe_forward``'s paths (expert-parallel in training and prefill where
-the ``model`` axis splits the experts); logits come back whole over the
-vocabulary; the cache is the rank's block under ``CACHE_RULES`` (rows
-over ``batch``, positions over ``kvseq``), its tensors carrying their
-spec.  Where ``seqcarry`` resolves, the residual stream between training
-layers is split over its sequence dim.  mamba and rwkv6 layers on a mesh
-raise (ROADMAP.md A13).
+the ``model`` axis splits the experts); rwkv6 and mamba mixers run on the
+rank's heads or channels (:mod:`.rwkv6`, :mod:`.mamba`); logits come back
+whole over the vocabulary; the cache is the rank's block under
+``CACHE_RULES`` (rows over ``batch``, positions over ``kvseq`` or kv
+heads over ``kvheads``, rwkv6 states over ``heads``, mamba states over
+``ffn``), its tensors carrying their spec.  Where ``seqcarry`` resolves,
+the residual stream between training layers is split over its sequence
+dim.
 """
 
 from __future__ import annotations
@@ -182,36 +184,32 @@ def param_count(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------------
 # Forward (train / prefill)
 # --------------------------------------------------------------------------
-#: Where the mesh path stops: the mixers it does not carry.
-NO_MESH_MIXERS = ("mamba", "rwkv6")
-
-
-def _mesh_check(mixer: str) -> None:
-    if comm.active() and mixer in NO_MESH_MIXERS:
-        raise NotImplementedError(
-            f"a {mixer} layer on a mesh: the port's mesh path carries "
-            f"attention layers with dense or MoE FFNs (ROADMAP.md A13)")
-
-
 def _kv_entry(cfg: ModelConfig, layer: Layer, k, v):
     """A prefill's k / v (B, S, KV, hd) as a cache entry (B, KV, S, hd);
-    under a mesh every kv head and the rank's block of the positions."""
+    under a mesh the rank's block as the cache's rules split it at the
+    prompt's length (:func:`repro_torch.sharding.layout.prefill_kv`)."""
     k, v = (t.transpose(1, 2).contiguous() for t in (k, v))
     if not comm.active():
         return {"k": k, "v": v}
     from repro_torch.sharding import layout
-    kvheads = comm.split_axes(layer.attn["wk"], 1)
-    spec = layout.prefill_kv_spec(cfg, k.shape[0], k.shape[2])
-    return {name: layout.tagged(comm.split(comm.gather(
-        t, 1, kvheads), 2, comm.entry_axes(spec[2])).contiguous(), spec)
-        for name, t in (("k", k), ("v", v))}
+    return layout.prefill_kv(cfg, comm.split_axes(layer.attn["wk"], 1), k,
+                             v)
+
+
+def _tag_states(layer: Layer, cache: dict, like: dict | None = None) -> dict:
+    """Under a mesh, an rwkv6 or mamba layer's states carrying the spec of
+    the blocks they hold (those of ``like``, the entry a decode step
+    read)."""
+    if not comm.active() or layer.mixer == "attention":
+        return cache
+    from repro_torch.sharding import layout
+    return layout.tag_states(layer, cache, like)
 
 
 def _layer(cfg: ModelConfig, layer: Layer, h, positions, collect_cache: bool,
            train: bool):
     """One layer over the whole sequence; returns (h, the MoE aux loss (0.0
     outside training or a MoE FFN), cache entry | None)."""
-    _mesh_check(layer.mixer)
     x_in = rmsnorm(h, layer.norm1, cfg.norm_eps)
     if layer.mixer == "attention":
         y, (k, v) = attn.self_attention(cfg.attention, layer.attn, x_in,
@@ -239,7 +237,7 @@ def _layer(cfg: ModelConfig, layer: Layer, h, positions, collect_cache: bool,
         y, cache["ffn_shift"] = rwkv.rwkv_ffn_forward(layer.rwkvffn, hn,
                                                       return_state=True)
         h = h + y
-    return h, aux, (cache if collect_cache else None)
+    return h, aux, (_tag_states(layer, cache) if collect_cache else None)
 
 
 def _apply_layer(cfg: ModelConfig, layer: Layer, h, positions,
@@ -333,24 +331,29 @@ def prefill(cfg: ModelConfig, model: Transformer, tokens):
     positions = torch.arange(S, device=x.device)
     h, caches = forward_hidden(cfg, model, x, positions, collect_cache=True)
     logits = unembed_logits(model.embed, h[:, -1], cfg.tie_embeddings)
-    if comm.active():
-        # ``len`` is the global batch's, split as CACHE_RULES split it
-        from repro_torch.sharding import layout
-        B *= comm.axes_size(comm.batch_split())
-        spec = layout.len_spec(B)
-        length = layout.tagged(sh.shard_leaf(torch.full(
-            (B,), S, dtype=torch.int32, device=x.device), spec,
-            sh.current_mesh()), spec)
-    else:
-        length = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    return logits, {"layers": caches, "len": length}
+    return logits, {"layers": caches, "len": prefill_len(B, S, x.device)}
+
+
+def prefill_len(B: int, S: int, device):
+    """``len`` after a prefill of S tokens of B rows (under a mesh the
+    rank's rows: ``len`` is the global batch's, split as CACHE_RULES split
+    it)."""
+    if not comm.active():
+        return torch.full((B,), S, dtype=torch.int32, device=device)
+    from repro_torch.sharding import layout
+    B *= comm.axes_size(comm.batch_split())
+    spec = layout.len_spec(B)
+    return layout.tagged(sh.shard_leaf(torch.full(
+        (B,), S, dtype=torch.int32, device=device), spec,
+        sh.current_mesh()), spec)
 
 
 # --------------------------------------------------------------------------
 # Decode
 # --------------------------------------------------------------------------
-def _cache_entry(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                 max_seq: int, device):
+def cache_entry(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                max_seq: int, device):
+    """The empty (global) cache entry of a layer of ``spec``."""
     dtype = dtype_of(cfg.dtype)
     if spec.mixer == "attention":
         a = cfg.attention
@@ -372,14 +375,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
     if comm.active():
         from repro_torch.sharding import layout
         return layout.init_cache(cfg, batch, max_seq, device)
-    return {"layers": [_cache_entry(cfg, layer_spec(cfg, l), batch, max_seq,
-                                    device)
+    return {"layers": [cache_entry(cfg, layer_spec(cfg, l), batch, max_seq,
+                                   device)
                        for l in range(cfg.num_layers)],
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
 def _decode_layer(cfg: ModelConfig, layer: Layer, c, h, new_len):
-    _mesh_check(layer.mixer)
+    read = c
     hn = rmsnorm(h, layer.norm1, cfg.norm_eps)
     if layer.mixer == "attention":
         k, v = attn.decode_project_kv(cfg.attention, layer.attn, hn, new_len,
@@ -406,16 +409,16 @@ def _decode_layer(cfg: ModelConfig, layer: Layer, c, h, new_len):
         y, c["ffn_shift"] = rwkv.rwkv_ffn_forward(layer.rwkvffn, hn,
                                                   return_state=True)
         h = h + y
-    return h, c
+    return h, _tag_states(layer, c, read)
 
 
-def _len_rows(cache, new_len):
+def len_rows(cache, new_len):
     """The lengths of the rows this rank's k / v hold: under a mesh
     ``len`` may be whole (CACHE_RULES leave the root ``len`` replicated)
     while the k / v split their rows over ``batch``."""
     if not comm.active():
         return new_len
-    rows = comm.spec_of(cache["layers"][0]["k"])[0]
+    rows = comm.spec_of(next(iter(cache["layers"][0].values())))[0]
     have = (comm.spec_of(cache["len"]) or (None,))[0]
     if have == rows:
         return new_len
@@ -432,7 +435,7 @@ def decode_step(cfg: ModelConfig, model: Transformer, cache, tokens):
     new_len = cache["len"] + 1
     if hasattr(cache["len"], comm.SPEC):
         setattr(new_len, comm.SPEC, getattr(cache["len"], comm.SPEC))
-    rows_len = _len_rows(cache, new_len)
+    rows_len = len_rows(cache, new_len)
     layers = []
     h = x
     for layer, c in zip(model.layers, cache["layers"]):

@@ -236,6 +236,14 @@ def gather(x, dim: int, axes: tuple):
     return x if _idle(axes) else _Gather.apply(x, dim, tuple(axes))
 
 
+def gather_sum(x, dim: int, axes: tuple):
+    """The blocks over ``axes`` concatenated along ``dim``, for consumers
+    that differ between the ranks (each reads its own part of the whole):
+    backward sums the gradient over the axes and takes this rank's
+    block."""
+    return x if _idle(axes) else _GatherParam.apply(x, dim, tuple(axes))
+
+
 def split(x, dim: int, axes: tuple):
     """This rank's block along ``dim``; backward gathers the blocks'
     gradients."""

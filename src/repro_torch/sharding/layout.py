@@ -11,7 +11,12 @@ have their parameter's shape and take its spec.
 
 The cache's k / v (the port's (B, KV, S, hd) per layer) take the spec of
 the reference's ``stack/<j>/k`` (periods, B, S, KV, hd) with its axes
-permuted; ``len`` the spec of ``len``.
+permuted (an encoder-decoder's ``enc_k`` / ``enc_v`` that of its
+``enc_kv``); an rwkv6 layer's ``att_shift``, ``ffn_shift`` and ``wkv``,
+a mamba layer's ``conv`` and ``ssm`` the spec of the reference's entry of
+that name without its period dim; ``len`` the spec of ``len``.  Adafactor's
+factored moments take their leaf's spec without the dim they average
+over.
 
 :func:`shard_model` / :func:`shard_state` cut global tensors into the
 rank's blocks, :func:`init_cache` allocates the rank's blocks of a cache;
@@ -61,9 +66,6 @@ def _per_layer(path: str, spec, stacked: bool) -> tuple:
 def shard_model(cfg: ModelConfig, model, mesh, rules) -> dict:
     """Cut the model's (global) parameters into this rank's blocks, in
     place, each tagged with its spec.  Returns the leaf specs."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "an encoder-decoder on a mesh (ROADMAP.md A13)")
     from repro_torch.models import convert
     specs = model_specs(cfg, mesh, rules)
     with torch.no_grad():
@@ -93,18 +95,41 @@ def _shard_tree(tree: dict, specs: dict, mesh) -> dict:
     return {k: sh.shard_leaf(v, specs[k], mesh) for k, v in tree.items()}
 
 
+def factored_specs(spec) -> tuple:
+    """The specs of Adafactor's ``v_row`` (the leaf's spec without its
+    last dim) and ``v_col`` (without its next-to-last dim) for a leaf of
+    ``spec``, factored over its two trailing dims."""
+    spec = tuple(spec)
+    return spec[:-1], spec[:-2] + spec[-1:]
+
+
+def _shard_moments(v: dict, specs: dict, mesh) -> dict:
+    out = {}
+    for k, st in v.items():
+        if "v" in st:
+            out[k] = {"v": sh.shard_leaf(st["v"], specs[k], mesh)}
+            continue
+        row, col = factored_specs(specs[k])
+        out[k] = {"v_row": sh.shard_leaf(st["v_row"], row, mesh),
+                  "v_col": sh.shard_leaf(st["v_col"], col, mesh)}
+    return out
+
+
 def shard_state(cfg: ModelConfig, state: dict, mesh, rules) -> dict:
     """A train state of global tensors (``train_step.init_state``) as this
-    rank's: the model cut in place, AdamW's moments and the error feedback
-    cut alike (Adafactor's factored moments raise)."""
+    rank's: the model cut in place, AdamW's moments, Adafactor's second
+    moments (factored or not), the master weights and the error feedback
+    cut alike."""
     specs = shard_model(cfg, state["params"], mesh, rules)
     opt = dict(state["opt"])
-    if "v" in opt and isinstance(next(iter(opt["v"].values())), dict):
-        raise NotImplementedError(
-            "Adafactor's factored moments on a mesh (ROADMAP.md A13)")
     for name in ("m", "v", "master"):
-        if name in opt:
-            opt[name] = _shard_tree(opt[name], specs, mesh)
+        if name not in opt:
+            continue
+        tree = opt[name]
+        if isinstance(next(iter(tree.values())), dict):
+            opt[name] = _shard_moments(tree, specs, mesh)
+        else:
+            opt[name] = _shard_tree(tree, specs, mesh)
     out = dict(state, opt=opt)
     if "ef" in state:
         out["ef"] = _shard_tree(state["ef"], specs, mesh)
@@ -118,15 +143,37 @@ def _mesh_rules():
     return sh.current_mesh(), sh.current_rules()
 
 
+#: The reference's cache path of each of the port's cache entries (its
+#: CACHE_RULES match on the name).
+_REF_CACHE = {"k": "stack/0/k", "v": "stack/0/v",
+              "att_shift": "stack/0/att_shift",
+              "ffn_shift": "stack/0/ffn_shift", "wkv": "stack/0/wkv",
+              "conv": "stack/0/conv", "ssm": "stack/0/ssm",
+              "enc_k": "enc_kv/0", "enc_v": "enc_kv/0"}
+#: Entries the port keeps as (B, KV, S, hd), the reference as (B, S, KV,
+#: hd).
+_KV = ("k", "v", "enc_k", "enc_v")
+
+
+def entry_spec(name: str, shape) -> tuple:
+    """The spec of a cache entry ``name`` of the port's global ``shape``
+    (one layer's, in the port's layout) under the current mesh and rules:
+    the reference's entry's spec without its period dim, permuted where
+    the layouts differ."""
+    mesh, rules = _mesh_rules()
+    shape = tuple(shape)
+    kv = name in _KV
+    ref = (1,) + ((shape[0], shape[2], shape[1], shape[3]) if kv else shape)
+    path = _REF_CACHE[name]
+    spec = sh.cache_specs({path: ref}, mesh, rules)[path][1:]
+    return (spec[0], spec[2], spec[1], spec[3]) if kv else spec
+
+
 def kv_spec(cfg: ModelConfig, batch: int, max_seq: int) -> tuple:
     """The spec of a layer's k / v (B, KV, S, hd) under the current mesh
     and rules: the reference's (periods, B, S, KV, hd) spec permuted."""
     a = cfg.attention
-    mesh, rules = _mesh_rules()
-    spec = sh.cache_specs({"stack/0/k": (cfg.num_periods, batch, max_seq,
-                                         a.num_kv_heads, a.head_dim)},
-                          mesh, rules)["stack/0/k"]
-    return (spec[1], spec[3], spec[2], spec[4])
+    return entry_spec("k", (batch, a.num_kv_heads, max_seq, a.head_dim))
 
 
 def entry(axes: tuple):
@@ -137,11 +184,44 @@ def entry(axes: tuple):
 
 
 def prefill_kv_spec(cfg: ModelConfig, rows: int, seq: int) -> tuple:
-    """The spec of a prefill's k / v (the rank's ``rows``, every kv head,
-    ``seq`` positions split as the cache's ``kvseq`` rule splits them)."""
+    """The spec of a prefill's k / v (the rank's ``rows``; the kv heads
+    and the ``seq`` positions split as the cache's ``kvheads`` and
+    ``kvseq`` rules split them at that length)."""
     split = comm.batch_split()
     spec = kv_spec(cfg, rows * comm.axes_size(split), seq)
-    return (entry(split), None, spec[2], None)
+    return (entry(split), spec[1], spec[2], None)
+
+
+def prefill_kv(cfg: ModelConfig, kvheads: tuple, k, v) -> dict:
+    """A prefill's k / v (the rank's rows, (B, KV, S, hd), its kv heads
+    split over ``kvheads``) as the rank's blocks of the cache entry."""
+    spec = prefill_kv_spec(cfg, k.shape[0], k.shape[2])
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        t = comm.gather(t, 1, kvheads)
+        t = comm.split(t, 1, sh.entry_axes(spec[1]))
+        out[name] = tagged(comm.split(t, 2, sh.entry_axes(spec[2]))
+                           .contiguous(), spec)
+    return out
+
+
+def tag_states(layer, cache: dict, like: dict | None = None) -> dict:
+    """An rwkv6 or mamba layer's states, each carrying the spec of the
+    blocks it holds: that of its namesake in ``like`` (the cache a decode
+    step read), else the rank's rows and the heads (``wkv``) or channels
+    (``conv``, ``ssm``) of the layer's weights."""
+    rows = entry(comm.batch_split())
+    if layer.mixer == "rwkv6":
+        heads = entry(comm.split_axes(layer.rwkv["w_r"], 1))
+        own = {"att_shift": (rows, None), "ffn_shift": (rows, None),
+               "wkv": (rows, heads, None, None)}
+    else:
+        ffn = entry(comm.split_axes(layer.mamba["in_proj"], 1))
+        own = {"conv": (rows, None, ffn), "ssm": (rows, ffn, None)}
+    for name, t in cache.items():
+        spec = comm.spec_of((like or {}).get(name)) or own[name]
+        tagged(t, spec)
+    return cache
 
 
 def len_spec(batch: int) -> tuple:
@@ -157,19 +237,25 @@ def _local_shape(shape, spec) -> tuple:
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
     """This rank's blocks of an empty decode cache of ``batch`` sequences
-    (global) and ``max_seq`` positions."""
-    from repro_torch.models import transformer
-    from repro_torch.models.layers import dtype_of
+    (global) and ``max_seq`` positions: each entry of the no-mesh cache
+    (:func:`repro_torch.models.transformer.cache_entry`,
+    :func:`repro_torch.models.encdec.cache_entry`) cut as
+    :func:`entry_spec` gives it."""
+    from repro_torch.models import encdec, transformer
+
+    def zeros(name, t):
+        spec = entry_spec(name, t.shape)
+        return tagged(torch.zeros(_local_shape(t.shape, spec),
+                                  dtype=t.dtype, device=device), spec)
+
+    layers = []
     for l in range(cfg.num_layers):
-        transformer._mesh_check(transformer.layer_spec(cfg, l).mixer)
-    a = cfg.attention
-    spec = kv_spec(cfg, batch, max_seq)
-    shape = _local_shape((batch, a.num_kv_heads, max_seq, a.head_dim), spec)
-    dtype = dtype_of(cfg.dtype)
-    zeros = lambda: tagged(torch.zeros(shape, dtype=dtype, device=device),
-                           spec)
+        meta = (encdec.cache_entry(cfg, batch, max_seq, "meta")
+                if cfg.is_encoder_decoder else transformer.cache_entry(
+                    cfg, transformer.layer_spec(cfg, l), batch, max_seq,
+                    "meta"))
+        layers.append({name: zeros(name, t) for name, t in meta.items()})
     ls = len_spec(batch)
-    return {"layers": [{"k": zeros(), "v": zeros()}
-                       for _ in range(cfg.num_layers)],
+    return {"layers": layers,
             "len": tagged(torch.zeros(_local_shape((batch,), ls),
                                       dtype=torch.int32, device=device), ls)}

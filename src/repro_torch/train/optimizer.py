@@ -19,11 +19,16 @@ API (mirrors the optax triple, but plain functions):
     params = apply_updates(params, updates)   # in place
 
 Under a mesh each rank holds its blocks of the leaves, and the train step
-passes ``norm_axes`` (leaf -> the mesh axes its blocks differ over): the
-clipping norm then sums each leaf's squares over those axes, so that it is
-the global norm.  AdamW and SGD are elementwise otherwise; Adafactor's
-factored moments and per-leaf means need the whole leaf and raise on a
-mesh (ROADMAP.md A13).
+passes ``specs`` (leaf -> its spec, the stacked period dim unsplit): the
+clipping norm sums each leaf's squares over the axes its blocks differ
+over, so that it is the global norm.  AdamW and SGD are elementwise
+otherwise.  Adafactor's means are the whole leaf's, where GSPMD would
+reduce them: the row mean (over the columns) and the column mean (over
+the rows) each sum over only the axes that split the dim they average,
+as does ``mean(v_row)``, and the update's RMS and the parameter's scale
+over every axis that splits the leaf; each sum is divided by the global
+count.  ``v_row`` / ``v_col`` hold the rank's blocks of the leaf's rows /
+columns (:func:`repro_torch.sharding.layout.factored_specs`).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Callable
 import torch
 
 from repro_torch.sharding import comm
+from repro_torch.sharding import specs as sh
 
 f32 = torch.float32
 
@@ -136,11 +142,21 @@ def _device(params: dict):
     return next(iter(params.values())).device
 
 
+def _norm_axes(specs: dict | None) -> dict | None:
+    """leaf -> the mesh axes its blocks differ over."""
+    if specs is None:
+        return None
+    return {k: tuple(a for e in spec for a in sh.entry_axes(e))
+            for k, spec in specs.items()}
+
+
 # --------------------------------------------------------------------------
 # AdamW
 # --------------------------------------------------------------------------
-def make_adamw(tcfg: TrainConfig, norm_axes: dict | None = None
+def make_adamw(tcfg: TrainConfig, specs: dict | None = None
                ) -> Optimizer:
+    norm_axes = _norm_axes(specs)
+
     def init(params):
         zeros = lambda p: torch.zeros(p.shape, dtype=f32, device=p.device)
         return {"m": {k: zeros(p) for k, p in params.items()},
@@ -184,12 +200,33 @@ def _factored_dims(shape):
     return len(shape) - 2, len(shape) - 1
 
 
-def make_adafactor(tcfg: TrainConfig, norm_axes: dict | None = None
+def _leaf_mean(specs: dict | None, k: str):
+    """``mean(x, dim)`` of a block of leaf ``k`` (or of a tensor whose dim
+    ``dim`` is the leaf's dim ``of``) as the whole leaf's: without a mesh
+    the local mean; on one, the sum over the axes that split that dim
+    (every axis of the leaf where ``dim`` is None) over the global
+    count."""
+    if specs is None:
+        return lambda x, dim=None, keepdim=False, of=None: (
+            torch.mean(x) if dim is None else x.mean(dim=dim,
+                                                      keepdim=keepdim))
+    spec = specs[k]
+
+    def mean(x, dim=None, keepdim=False, of=None):
+        entries = spec if dim is None else (spec[dim if of is None else of],)
+        axes = tuple(a for e in entries for a in sh.entry_axes(e))
+        n = (x.numel() if dim is None else x.shape[dim]) \
+            * comm.axes_size(axes)
+        part = torch.sum(x) if dim is None else x.sum(dim=dim,
+                                                      keepdim=keepdim)
+        return comm.all_reduce_raw(part, axes) / n
+
+    return mean
+
+
+def make_adafactor(tcfg: TrainConfig, specs: dict | None = None
                    ) -> Optimizer:
-    if norm_axes is not None:
-        raise NotImplementedError(
-            "Adafactor on a mesh: its factored moments and per-leaf means "
-            "need the whole leaf (ROADMAP.md A13)")
+    norm_axes = _norm_axes(specs)
     decay = 0.8  # beta2 schedule exponent: 1 - t^-0.8 (paper default)
 
     def dims_of(p):
@@ -226,6 +263,7 @@ def make_adafactor(tcfg: TrainConfig, norm_axes: dict | None = None
         for k, p in params.items():
             g = grads.pop(k)
             v = state["v"][k]
+            mean = _leaf_mean(specs, k)
             g2 = torch.square(g) + 1e-30
             dims = dims_of(p)
             if dims is None:
@@ -234,22 +272,23 @@ def make_adafactor(tcfg: TrainConfig, norm_axes: dict | None = None
             else:
                 r, c = dims
                 vr = v["v_row"].mul_(beta2).add_((1 - beta2)
-                                                 * g2.mean(dim=c))
+                                                 * mean(g2, c))
                 vc = v["v_col"].mul_(beta2).add_((1 - beta2)
-                                                 * g2.mean(dim=r))
-                # rank-1 reconstruction: v ~= vr vc / mean(vr)
-                denom = torch.clamp_min(vr.mean(dim=-1, keepdim=True),
+                                                 * mean(g2, r))
+                # rank-1 reconstruction: v ~= vr vc / mean(vr); vr's last
+                # dim is the leaf's row dim r
+                denom = torch.clamp_min(mean(vr, -1, keepdim=True, of=r),
                                         1e-30)
                 vhat = (vr / denom).unsqueeze(c) * vc.unsqueeze(r)
                 u = g * torch.rsqrt(vhat + tcfg.eps)
             del g, g2
             # update clipping (adafactor d=1.0)
-            rms_u = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            rms_u = torch.sqrt(mean(torch.square(u)) + 1e-30)
             u = u / torch.clamp_min(rms_u, 1.0)
             # relative step scale
             pf = p.to(f32)
-            p_scale = torch.clamp_min(torch.sqrt(torch.mean(
-                torch.square(pf))), 1e-3)
+            p_scale = torch.clamp_min(torch.sqrt(mean(torch.square(pf))),
+                                      1e-3)
             upd = -lr * p_scale * u
             if tcfg.weight_decay and p.ndim >= 2:
                 upd = upd - lr * tcfg.weight_decay * pf
@@ -268,8 +307,10 @@ def make_adafactor(tcfg: TrainConfig, norm_axes: dict | None = None
 # --------------------------------------------------------------------------
 # SGD (tests / ablations)
 # --------------------------------------------------------------------------
-def make_sgd(tcfg: TrainConfig, norm_axes: dict | None = None
+def make_sgd(tcfg: TrainConfig, specs: dict | None = None
              ) -> Optimizer:
+    norm_axes = _norm_axes(specs)
+
     def init(params):
         return _scalars(_device(params))
 
@@ -284,8 +325,9 @@ def make_sgd(tcfg: TrainConfig, norm_axes: dict | None = None
     return Optimizer(init=init, update=update)
 
 
-def make_optimizer(tcfg: TrainConfig, norm_axes: dict | None = None
+def make_optimizer(tcfg: TrainConfig, specs: dict | None = None
                    ) -> Optimizer:
-    """The optimizer of ``tcfg``; ``norm_axes`` for a mesh's blocks."""
+    """The optimizer of ``tcfg``; ``specs`` (leaf -> spec) for a mesh's
+    blocks."""
     return {"adamw": make_adamw, "adafactor": make_adafactor,
-            "sgd": make_sgd}[tcfg.optimizer](tcfg, norm_axes)
+            "sgd": make_sgd}[tcfg.optimizer](tcfg, specs)

@@ -240,8 +240,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         if sh.active():
             loss, metrics, grads, ef, specs = _mesh_grads(cfg, tcfg, state,
                                                           batch)
-            step_opt = make_optimizer(tcfg, norm_axes={
-                k: _spec_axes(s) for k, s in specs.items()})
+            step_opt = make_optimizer(tcfg, specs=specs)
         elif tcfg.dp_compression == "int8":
             raise ValueError("int8 DP compression needs a 'pod' mesh axis")
         else:

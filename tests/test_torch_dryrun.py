@@ -9,6 +9,9 @@ the contract:
     the bytes that the JAX package's ``param_specs`` / ``cache_specs`` give
     rank 0 of the reference's state or parameters and cache, plus its rows
     of the batch (stand-in meshes as in ``test_torch_sharding.py``).
+    Adafactor's factored moments take the reference's spec of their leaf
+    without the dim each averages over (the reference's ``PARAM_RULES``
+    match no ``.../v_row`` path: its dry-run holds them replicated).
 (b) **Collectives.**  On tiny llama and granite-moe at (pod 2, data 2,
     model 2), the collectives the counter logs under the ``fake`` backend
     on meta tensors equal, kind by kind, group by group and byte by byte,
@@ -24,14 +27,13 @@ the contract:
     K8's own 4 FLOPs a value, against the reference's plain full-square
     attention dots (forward 4·S²·hd a head, backward twice that, once more
     under remat) — and against ``model_flops`` within MODEL_BAND.
-(d) **Failures.**  At tiny size on a test mesh (each arch with its full
-    size's train config: Adafactor for the two largest) every cell of
-    ARCHS x SHAPES is ``ok``, ``skipped`` exactly where
-    ``shape_applicable`` says so, or ``failed`` with a
-    ``NotImplementedError`` that names ROADMAP.md A13, and the failed
-    cells are A13_CELLS; at the production meshes (both pods) those cells
-    fail alike.  (That every other production cell is ``ok`` is what
-    ``--all`` shows; its sweep takes minutes.)
+(d) **No failures.**  At tiny size on a test mesh (each arch with its
+    full size's train config: Adafactor for the two largest) every cell of
+    ARCHS x SHAPES is ``ok``, with its roofline and memory fields, or
+    ``skipped`` exactly where ``shape_applicable`` says so; none fails,
+    the mamba, rwkv6, encoder-decoder and Adafactor cells included.  (That
+    every production cell is ``ok`` or skipped is what ``--all`` shows;
+    its sweep takes minutes.)
 
 Besides, the kernel wrappers' meta branches: reached only by meta tensors
 under a counter, launching nothing, outputs of the kernel's shapes and
@@ -84,12 +86,6 @@ FLOP_BAND = (0.7, 1.1)
 #: tiny widths (d 64) outweighs them at 640 positions, and under remat the
 #: recomputed forward; a prefill's head runs on the last position only).
 MODEL_BAND = (0.9, 3.5)
-#: (d): the cells that fail at the production meshes, both pods alike:
-#: mamba, rwkv6, the encoder-decoder and Adafactor on a mesh.
-A13_CELLS = ([("qwen3-moe-235b-a22b", "train_4k")]
-             + [("jamba-1.5-large-398b", s) for s in dryrun.SHAPES]
-             + [("rwkv6-1.6b", s) for s in dryrun.SHAPES]
-             + [("whisper-large-v3", s) for s in dryrun.SHAPES[:3]])
 
 
 def ref_tcfg(cfg) -> JTrainConfig:
@@ -138,6 +134,30 @@ def batch_bytes(batch, mesh, rules) -> int:
     return rank_bytes(batch, specs, mesh)
 
 
+def ref_flat(tree, is_leaf=None) -> dict:
+    leaves, _ = jax.tree_util.tree_flatten_with_path(tree, is_leaf=is_leaf)
+    return {jspecs._path_str(p): v for p, v in leaves}
+
+
+def moment_specs(state, specs) -> dict:
+    """The reference's specs of a train state by path, Adafactor's factored
+    moments (``opt/v/<leaf>/v_row`` / ``v_col``) given their leaf's spec
+    without its last / next-to-last entry."""
+    shapes = ref_flat(state)
+    specs = ref_flat(specs, lambda x: isinstance(x,
+                                                 jax.sharding.PartitionSpec))
+    out = {}
+    for path in shapes:
+        leaf, _, name = path.rpartition("/")
+        if path.startswith("opt/v/") and name in ("v_row", "v_col"):
+            spec = tuple(specs["params/" + leaf[len("opt/v/"):]])
+            spec = spec[:-1] if name == "v_row" else spec[:-2] + spec[-1:]
+            out[path] = jax.sharding.PartitionSpec(*spec)
+        else:
+            out[path] = specs[path]
+    return out
+
+
 def ref_argument_bytes(arch, shape_name, multi_pod) -> int:
     cfg, shape = jcb.get_config(arch), jcb.SHAPES[shape_name]
     mesh = stand_in(multi_pod)
@@ -146,26 +166,42 @@ def ref_argument_bytes(arch, shape_name, multi_pod) -> int:
     if shape.step == "train":
         tcfg = ref_tcfg(cbase.get_config(cfg.name))
         state = jax.eval_shape(lambda k: jinit_state(cfg, tcfg, k), key)
-        return (rank_bytes(state, jspecs.param_specs(state, mesh, rules),
+        specs = moment_specs(state, jspecs.param_specs(state, mesh, rules))
+        flat = ref_flat(state)
+        return (rank_bytes([flat[k] for k in specs], list(specs.values()),
                            mesh)
                 + batch_bytes(jinputs.train_inputs(cfg, shape), mesh, rules))
     params = jax.eval_shape(lambda k: jm.init_params(cfg, k), key)
     n = rank_bytes(params, jspecs.param_specs(params, mesh, rules), mesh)
+    if shape.step == "prefill":
+        return n + batch_bytes(jinputs.prefill_inputs(cfg, shape), mesh,
+                               rules)
     cache, tokens = jinputs.decode_inputs(cfg, shape)
     return (n + rank_bytes(cache, jspecs.cache_specs(cache, mesh, rules),
                            mesh)
             + batch_bytes({"t": tokens}, mesh, rules))
 
 
+#: The state and the batch's rows do not depend on the microbatching: one
+#: microbatch keeps the 235 B train cell's step on meta to a few seconds
+#: (its 8 take minutes).
+ONE_MICROBATCH = {"qwen3-moe-235b-a22b": {"grad_accum": 1}}
+
+
 @pytest.mark.parametrize("arch,shape_name,multi_pod", [
     ("llama3.2-1b", "decode_32k", False),
     ("granite-moe-1b-a400m", "train_4k", True),
     ("gemma3-4b", "decode_32k", True),
+    ("rwkv6-1.6b", "decode_32k", False),
+    ("jamba-1.5-large-398b", "prefill_32k", True),
+    ("whisper-large-v3", "decode_32k", False),
+    ("qwen3-moe-235b-a22b", "train_4k", True),
 ])
 def test_argument_bytes_equal_the_reference_specs(arch, shape_name,
                                                   multi_pod):
     rec = dryrun.cell_record(cbase.get_config(arch), cbase.SHAPES[shape_name],
-                             *production(multi_pod))
+                             *production(multi_pod),
+                             tcfg_kw=ONE_MICROBATCH.get(arch))
     assert rec["status"] == "ok", rec.get("trace")
     assert rec["rank"] == 0
     assert rec["memory"]["argument_bytes"] == \
@@ -275,24 +311,22 @@ def test_flops_against_analyze_hlo(arch, step, S, B, remat):
 
 
 # --------------------------------------------------------------------------
-# (d) every cell ok, skipped by shape_applicable, or failed at A13
+# (d) every cell ok or skipped by shape_applicable
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", dryrun.ARCHS)
 def test_cells_ok_skipped_or_a13(arch):
+    """Every cell ok or skipped; no cell fails (the name is kept from when
+    the mamba, rwkv6, encoder-decoder and Adafactor cells raised)."""
     full = cbase.get_config(arch)
     cfg, tcfg = tiny(full), dryrun.default_tcfg(full)
-    failed = []
     for shape_name in dryrun.SHAPES:
         shape = cbase.SHAPES[shape_name]
         rec = dryrun.cell_record(cfg, shape, 8,
                                  lambda: make_test_mesh(**MESH), tcfg=tcfg)
         applicable = cbase.shape_applicable(cfg, shape)[0]
-        assert (rec["status"] == "skipped") == (not applicable), rec
-        if rec["status"] == "failed":
-            assert rec["error"].startswith("NotImplementedError"), rec
-            assert "A13" in rec["error"], rec["error"]
-            failed.append((arch, shape_name))
-        elif rec["status"] == "ok":
+        assert rec["status"] == ("ok" if applicable else "skipped"), \
+            rec.get("trace", rec)
+        if rec["status"] == "ok":
             r = rec["roofline"]
             assert r["flops"] > 0 and r["traffic_bytes"] > 0
             assert r["part"] == ca.PART
@@ -300,14 +334,6 @@ def test_cells_ok_skipped_or_a13(arch):
             assert m["peak_bytes_per_device"] == (
                 m["argument_bytes"] + m["output_bytes"] + m["temp_bytes"]
                 - m["alias_bytes"])
-    assert failed == [c for c in A13_CELLS if c[0] == arch]
-    for _, shape_name in failed:
-        for multi_pod in (False, True):
-            rec = dryrun.cell_record(full, cbase.SHAPES[shape_name],
-                                     *production(multi_pod))
-            assert rec["status"] == "failed", rec
-            assert rec["error"].startswith("NotImplementedError"), rec
-            assert "A13" in rec["error"], rec["error"]
     assert not dist.is_initialized()
 
 
@@ -367,6 +393,36 @@ def test_meta_branch_counts_and_launches_nothing(name, monkeypatch):
             RW.rwkv6_scan.launches, MS.mamba_scan.launches) == launches
 
 
+def _scan_inputs(name):
+    if name == "rwkv6_scan":
+        return [_meta(4, 9, 64) for _ in range(4)] + [_meta(4, 64)]
+    return [_meta(2, 7, 48), _meta(2, 7, 48), _meta(2, 7, 16),
+            _meta(2, 7, 16), _meta(48, 16)]
+
+
+@pytest.mark.parametrize("name", ["rwkv6_scan", "mamba_scan"])
+def test_meta_scan_backward_counts_by_formula(name, monkeypatch):
+    """K6's and K7's backward on meta under a counter: the inputs'
+    gradients' shapes, nothing launched or dispatched step by step, the
+    plain backward counted as BACKWARD_WORK x the forward's FLOPs and
+    twice its bytes."""
+    from repro_torch.kernels import grad as KG
+    monkeypatch.setattr(lm_lib, "launch", _no_launch)
+    mod = RW if name == "rwkv6_scan" else MS
+    ins = [t.requires_grad_() for t in _scan_inputs(name)]
+    flops, n_bytes = mod.meta_cost(*ins, *([None] * (name == "rwkv6_scan")))
+    with ca.CostCounter() as counter:
+        y, s = getattr(mod, name)(*ins)
+        grads = torch.autograd.grad(y.sum() + s.sum(), ins)
+    assert [(g.shape, g.device.type) for g in grads] == \
+        [(t.shape, "meta") for t in ins]
+    assert counter.cost.kernels[f"{name}_grad"] == {
+        "launches": 1, "flops": KG.BACKWARD_WORK * flops,
+        "bytes": 2.0 * n_bytes}
+    # the forward, two sums and their backward: no step of a scan
+    assert counter.cost.n_ops < 20
+
+
 def test_meta_without_a_counter_raises():
     with pytest.raises(ValueError, match="meta ones under a cost counter"):
         RN.rmsnorm(_meta(4, 64), _meta(64))
@@ -409,7 +465,13 @@ def test_cli_writes_one_record_per_cell(tmp_path):
     assert rec["roofline"]["part"] == ca.PART
     assert rec["kernels"]["rmsnorm"]["launches"] == \
         2 * cbase.get_config("llama3.2-1b").num_layers + 1
+    recs = dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "decode_32k",
+                        "--out", out])
+    assert recs[0]["status"] == "ok", recs[0].get("trace")
+    assert recs[0]["kernels"]["rwkv6_scan"]["launches"] == \
+        cbase.get_config("rwkv6-1.6b").num_layers
+    # a cell that fails (int8 compression needs a pod axis) exits 1
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "decode_32k",
-                     "--out", out])
+        dryrun.main(["--arch", "llama3.2-1b", "--shape", "train_4k",
+                     "--compress", "int8", "--out", out])
     assert e.value.code == 1

@@ -200,28 +200,43 @@ def test_blocks_assemble_the_leaf(arch, mesh_name):
 
 
 def test_mesh_refuses_what_it_does_not_carry():
-    """mamba, rwkv6 and encoder-decoder stacks on a mesh raise (ROADMAP
-    A13) before any collective; so does Adafactor's factored update."""
+    """What the mesh path does not carry raises before any collective: an
+    rwkv6 time-mix whose heads would straddle two ranks, a mamba mixer
+    whose expanded channels do not split evenly, a weight split over FSDP
+    and tensor-parallel axes on one dim, and a spec that splits a stacked
+    leaf's period dim."""
     from repro_torch import models
-    from repro_torch.train import TrainConfig, make_optimizer
-    mesh = stand_in("2x2")
+    from repro_torch.models import mamba, rwkv6
+    from repro_torch.sharding import comm
+    wide = SimpleNamespace(axis_names=("data", "model"),
+                           shape={"data": 1, "model": 8},
+                           devices=np.empty((1, 8)))
     rules = specs.MeshRules(batch="data")
-    tokens = torch.zeros((2, 4), dtype=torch.long)
-    for arch in ("jamba-1.5-large-398b", "rwkv6-1.6b", "whisper-large-v3"):
+    for arch, mixer, part in (("rwkv6-1.6b", rwkv6.rwkv6_forward, "rwkv"),
+                              ("jamba-1.5-large-398b", mamba.mamba_forward,
+                               "mamba")):
         cfg = tiny(cbase.get_config(arch)).replace(dtype="float32",
                                                    param_dtype="float32")
         model = models.init_params(cfg, torch.Generator().manual_seed(0),
                                    "cpu")
-        batch = {"tokens": tokens}
-        if cfg.is_encoder_decoder:
-            batch["frames"] = torch.zeros((2, cfg.encoder_seq, cfg.d_model))
+        layer = next(l for l in model.layers if hasattr(l, part))
+        params = getattr(layer, part)
+        name = "w_r" if part == "rwkv" else "in_proj"
+        layout.tagged(params[name], (None, "model"))
+        mesh = wide if part == "rwkv" else SimpleNamespace(
+            axis_names=("data", "model"), shape={"data": 1, "model": 256},
+            devices=np.empty((1, 256)))
+        mcfg = cfg.rwkv6 if part == "rwkv" else cfg.mamba
         with specs.use_mesh(mesh, rules):
-            with pytest.raises(NotImplementedError, match="A13"):
-                models.prefill(cfg, model, batch)
-            with pytest.raises(NotImplementedError, match="A13"):
-                models.init_cache(cfg, 2, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_optimizer(TrainConfig(optimizer="adafactor"), norm_axes={})
+            with pytest.raises(NotImplementedError, match="not split over"):
+                mixer(mcfg, params, torch.zeros((2, 4, cfg.d_model)))
+    w = layout.tagged(torch.zeros((8, 4)), (("data", "model"), None))
+    with specs.use_mesh(wide, specs.MeshRules(batch="data",
+                                              fsdp=("data",))):
+        with pytest.raises(NotImplementedError, match="FSDP and"):
+            comm.weight(w)
+    with pytest.raises(NotImplementedError, match="stacked period dim"):
+        layout._per_layer("stack/0/mlp/w_in", ("data", None, "model"), True)
 
 
 def test_microbatches_keep_the_batch_split():

@@ -9,7 +9,9 @@ thread, and rank 0 writes ``out.npz``: global tensors gathered from the
 ranks' blocks, or a cost task's log of collectives.  The tests
 (``test_torch_mesh.py``, ``test_torch_moe_ep.py``, ``test_torch_dryrun.py``)
 start the ranks and hold the results against the JAX package, the port's
-one-device runs and the dry-run.  Imports nothing of JAX.
+one-device runs and the dry-run; ``test_torch_mesh_mixers.py`` too, with
+the ``serve`` task (prefill, then decode on from the prefill's cache) and
+Adafactor's moments.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -68,13 +70,23 @@ def wait_ranks(procs, timeout: float = 240.0):
 
 
 def arch_cfg(name: str, capacity_factor: float | None = None,
-             dtype: str = "bfloat16"):
+             dtype: str = "bfloat16", attention: dict | None = None):
+    """The tiny config of ``name`` in ``dtype``; ``attention``: fields of
+    its attention config replaced."""
     cfg = tiny(cbase.get_config(name)).replace(dtype=dtype,
                                                param_dtype=dtype)
     if capacity_factor is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=capacity_factor))
+    if attention:
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, **attention))
     return cfg
+
+
+def task_cfg(spec):
+    return arch_cfg(spec["arch"], spec.get("capacity_factor"),
+                    spec["dtype"], spec.get("attention"))
 
 
 def model_from(cfg, inp, prefix: str):
@@ -86,8 +98,10 @@ def model_from(cfg, inp, prefix: str):
 
 
 def batch_of(inp, prefix: str) -> dict:
+    """tokens, labels, and frames where the batch has them."""
     return {k: torch.from_numpy(inp[f"{prefix}/{k}"])
-            for k in ("tokens", "labels")}
+            for k in ("tokens", "labels", "frames")
+            if f"{prefix}/{k}" in inp.files}
 
 
 def numpy(t):
@@ -104,12 +118,12 @@ def task_train(name, job, inp, mesh, out):
     int8 from a residual carried in (:func:`_carried_residual`), the
     dequantized pod sums beside each pod's new residual."""
     spec = job["tasks"][name]
-    cfg = arch_cfg(spec["arch"], spec.get("capacity_factor"),
-                   spec["dtype"]).replace(remat=spec.get("remat", "none"))
+    cfg = task_cfg(spec).replace(remat=spec.get("remat", "none"))
     tcfg = TrainConfig(warmup_steps=2, decay_steps=20, seed=0,
+                       optimizer=spec.get("optimizer", "adamw"),
                        dp_compression=spec.get("compression", "none"))
-    batch = {k: v[:, :spec.get("seq")] for k, v in
-             batch_of(inp, spec["batch"]).items()}
+    batch = {k: v if k == "frames" else v[:, :spec.get("seq")]
+             for k, v in batch_of(inp, spec["batch"]).items()}
     rules = profiles.rules_for(cfg, mesh, "train", spec.get("overrides"))
     state = state_of(cfg, tcfg, model_from(cfg, inp, spec["params"]))
     with sh.use_mesh(mesh, rules):
@@ -126,6 +140,15 @@ def task_train(name, job, inp, mesh, out):
     state, metrics = build(cfg, tcfg, mesh, rules)(state, batch)
     for k, v in layout.gather_leaves(cfg, state["params"], mesh).items():
         out[f"{name}/p/{k}"] = numpy(v)
+    if tcfg.optimizer == "adafactor":
+        specs = ts._leaf_specs(cfg, state["params"])
+        for k, v in state["opt"]["v"].items():
+            if "v_row" in v:
+                row, col = layout.factored_specs(specs[k])
+                out[f"{name}/v_row/{k}"] = numpy(sh.gather_leaf(
+                    v["v_row"], row, mesh))
+                out[f"{name}/v_col/{k}"] = numpy(sh.gather_leaf(
+                    v["v_col"], col, mesh))
     for k in ("loss", "ce", "aux", "grad_norm"):
         out[f"{name}/{k}"] = np.asarray(float(metrics[k]))
     if "ef" in state:
@@ -170,6 +193,59 @@ def task_decode(name, job, inp, mesh, out):
                 "tokens": comm.local_rows(prompts, split)})
             out[f"{name}/prefill"] = numpy(gather_rows(logits, split, mesh))
             cache = models.init_cache(cfg, B, spec["max_seq"], "cpu")
+            seen = []
+            for t in range(steps.shape[1]):
+                logits, cache = models.decode_step(
+                    cfg, model, cache, comm.local_rows(steps[:, t:t + 1],
+                                                       split))
+                seen.append(numpy(gather_rows(logits, split, mesh)))
+            out[f"{name}/decode"] = np.stack(seen, 1)
+
+
+def widen(cfg, pre, batch: int, max_seq: int, mesh=None):
+    """A prefill's cache as a decode cache of ``max_seq`` slots: each k /
+    v entry's positions copied into the first slots, every other entry as
+    it is.  On a mesh (the mesh context entered) each entry is gathered
+    from the prefill's blocks and cut as the decode cache's."""
+    cache = models.init_cache(cfg, batch, max_seq, "cpu")
+    whole = (lambda t: t) if mesh is None else \
+        (lambda t: sh.gather_leaf(t, comm.spec_of(t), mesh))
+    for c, p in zip(cache["layers"], pre["layers"]):
+        for k, t in c.items():
+            full = whole(p[k])
+            if k in ("k", "v"):
+                wide = torch.zeros(full.shape[:2] + (max_seq,)
+                                   + full.shape[3:], dtype=full.dtype)
+                wide[:, :, :full.shape[2]] = full
+                full = wide
+            t.copy_(full if mesh is None else
+                    sh.shard_leaf(full, comm.spec_of(t), mesh))
+    cache["len"].copy_(pre["len"])
+    return cache
+
+
+def task_serve(name, job, inp, mesh, out):
+    """Prefill (frames too, for an encoder-decoder), then decode steps on
+    from the prefill's cache, widened to ``max_seq`` slots, under the
+    serve rules: the logits of every rank's rows gathered."""
+    spec = job["tasks"][name]
+    cfg = task_cfg(spec)
+    model = model_from(cfg, inp, spec["params"])
+    rules = profiles.rules_for(cfg, mesh, "decode", spec.get("overrides"))
+    batch = {k: torch.from_numpy(inp[f"{spec['batch']}/{k}"])
+             for k in ("prompts", "frames")
+             if f"{spec['batch']}/{k}" in inp.files}
+    steps = torch.from_numpy(inp[f"{spec['batch']}/steps"])
+    B = steps.shape[0]
+    with sh.use_mesh(mesh, rules):
+        layout.shard_model(cfg, model, mesh, rules)
+        split = comm.batch_axes_for(B)
+        with torch.no_grad(), comm.batch(split):
+            logits, pre = models.prefill(cfg, model, {
+                ("tokens" if k == "prompts" else k): comm.local_rows(v, split)
+                for k, v in batch.items()})
+            out[f"{name}/prefill"] = numpy(gather_rows(logits, split, mesh))
+            cache = widen(cfg, pre, B, spec["max_seq"], mesh)
             seen = []
             for t in range(steps.shape[1]):
                 logits, cache = models.decode_step(
@@ -251,8 +327,8 @@ def task_cost(name, job, inp, mesh, out):
         "collective_count": c.collective_count}))
 
 
-TASKS = {"train": task_train, "decode": task_decode, "moe": task_moe,
-         "cost": task_cost}
+TASKS = {"train": task_train, "decode": task_decode, "serve": task_serve,
+         "moe": task_moe, "cost": task_cost}
 
 
 def main(job_dir: str, rank: int, world: int) -> None:
