@@ -21,8 +21,9 @@ Phases (each but the first prints one JSON line):
    lane; ``flash_attention`` per dtype x head-dim class and its
    tensor-core kernel per head dim; ``rwkv6_scan`` per head dim;
    ``mamba_scan`` per state size; ``rmsnorm`` per dtype); fails unless
-   ``cuobjdump -sass`` shows ``HGMMA`` in both instantiations of the
-   tensor-core kernel, whose registers and spills it prints apart;
+   ``cuobjdump -sass`` shows ``HGMMA`` in each of the four instantiations
+   of the tensor-core kernel (hd 64, 80, 128, 256), whose registers and
+   spills it prints apart, or if one of them spills;
    ``k1_sass``: per ``lock_sim_block_kernel<NS, OPEN>`` instantiation its
    static SASS counts (total, VOTE, REDUX, SHFL, MUFU, CALL, BSSY, BRA,
    LDS, STS, integer, the most frequent opcodes), its registers and
@@ -41,11 +42,14 @@ LM1. ``flash_attention_vs_plain``  ``flash_attention`` against
    1500) at batch 8 in bf16 and batch 1 in f32, the decoder's prefill
    (causal, S 4) at batch 8 in bf16: 1019 cases, max|d| <= 2e-5 (f32) /
    the smaller of 2e-2 and two bf16 ulps of the plain output + 2e-5
-   (bf16); hd 12 and 264 refused.  Traced: the 222 bf16 cases with hd 64
-   or 128 must count in ``tc_launches`` and run
-   ``flash_attention_kernel_sm90``, the other 797 the SIMT kernel.
+   (bf16); hd 12 and 264 refused.  Traced: the 414 bf16 cases with hd 64,
+   80, 128 or 256 must count in ``tc_launches`` and run
+   ``flash_attention_kernel_sm90``, the other 605 (f32, and bf16 hd 16)
+   the SIMT kernel.
 LM2. ``rmsnorm_vs_plain``  ``rmsnorm`` against ``rmsnorm_ref`` on rows x D
-   {1x64, 7x80, 4x2048, 4096x2048, 3x8192}, f32 (rtol 2e-6) and bf16
+   ``RMS_SHAPES`` (1x64, 7x80, the served models' prefill and decode rows:
+   llama's D 2048, jamba's 8192 and 16 384, gemma3-4b's 2560 and its
+   qk-norm's 256; the kernel's split edges), f32 (rtol 2e-6) and bf16
    (one bf16 ulp), w in x's dtype; D=70, a w in f32 under bf16 x and a
    row not 16-byte aligned refused.
 LM3. ``lm_vs_plain``  llama3.2-1b at full width cut to 2 layers, f32, one
@@ -58,7 +62,8 @@ LM4. ``serve_at_size``  full llama3.2-1b (16 layers, bf16, random weights
    mutable policy, 4 slots, max_seq 2048, 16 requests of 128-1024 prompt
    tokens, 32 new tokens each: seconds, generated tokens/s, median prefill
    and decode-step ms, the kernels' launches, peak bytes, and the device's
-   idle share from a second, traced pass; every request must finish with
+   idle share from a traced pass of the first TRACE_REQUESTS requests,
+   over that pass's own untraced seconds; every request must finish with
    every token in [0, V), every prefill and every decode step launching
    K8 2 * layers + 1 times and every prefill K5 once per layer, each K5
    launch on the tensor-core kernel (bf16, hd 64).
@@ -112,6 +117,20 @@ LM11a. ``serve_granite_at_size``  ``serve_at_size`` for granite-moe-1b-a400m
    times (on the tensor cores: bf16, hd 64) and K8 49 times, every decode
    step K8 49 times and K5 never, K6 and K7 never; the parameter count
    equal to ``models.param_count``; the idle share as rwkv6's.
+LM11b. ``gemma3_lm_vs_plain``  ``lm_vs_plain`` for gemma3-4b at full width
+   cut to one period of its pattern (6 layers: five local of window 1024,
+   one global), f32, with a 1100-token prompt so that the local layers'
+   window masks, in the prefill and in the 8 decode steps: the qk-norm,
+   the scaled tied embedding and the two rope bases on the card against
+   the CPU; logits within 1e-3, K5 6 (SIMT: f32) and K8 25 a forward.
+   Then ``serve_gemma3_at_size``: ``serve_at_size`` for gemma3-4b at full
+   width and depth (34 layers, five local (window 1024) to one global,
+   8 heads on 4 KV heads of 256, qk-norm, 3 879 925 248 bf16 parameters),
+   the same traffic: every request completes with every token in [0, V),
+   every prefill launching K5 34 times (on the tensor cores: bf16, hd 256)
+   and K8 137 times (two a layer, the qk-norm's two, the final norm),
+   every decode step K8 137 times and K5 never; the parameter count
+   3 879 925 248 and ``models.param_count``'s; the idle share as rwkv6's.
 LM12a. ``whisper_lm_vs_plain``  whisper-large-v3 at full width cut to 2
    encoder and 2 decoder layers, f32, one seeded set of weights: one clip
    of 1500 seeded frames and a 4-token prompt, prefill and 8 decode steps
@@ -360,10 +379,15 @@ LM16. ``mesh_world1``  the mesh path (``repro_torch.sharding``,
    one prefill layer of llama3.2-1b and of jamba (hd 64 and 128, both on
    the tensor cores, each with its own bound and SDPA time) and at one
    encoder layer of whisper as it serves (non-causal, B*H 160, S 1500,
-   with the launches of ``serve_whisper_at_size``) and
-   ``rmsnorm`` at a prefill and a decode shape, with the PyTorch call that
-   computes the same function (``library_ms``: ``scaled_dot_product_attention``, ``rms_norm``) and
-   the launches of ``serve_at_size``; ``rwkv6_scan`` at one prefill layer
+   with the launches of ``serve_whisper_at_size``), at one prefill
+   layer of gemma3-4b (hd 256, the launches of ``serve_gemma3_at_size``)
+   and of stablelm-3b (hd 80, on no served path: 0), and
+   ``rmsnorm`` at a prefill and a decode shape of llama, of jamba (D 8192
+   and its mamba norm's 16 384) and of gemma3-4b (D 2560 and its
+   qk-norm's 256 over q's and over k's rows), each with the launches its
+   serving phase made at that D, with the PyTorch call that computes the
+   same function (``library_ms``: ``scaled_dot_product_attention``,
+   ``rms_norm``); ``rwkv6_scan`` at one prefill layer
    (B*H = 32, T = 1024) and one decode step (B*H = 128, T = 1) of
    rwkv6-1.6b, with no library call (none computes the WKV recurrence),
    the launches of ``serve_rwkv6_at_size``, the CTAs a head its launch
@@ -430,7 +454,8 @@ from repro_torch.kernels import mamba_scan as K7  # noqa: E402
 from repro_torch.kernels import rmsnorm as K8  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as K6  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    LIMIT as FLASH_LIMIT, bf16_ulp, excess as flash_excess, tensor_core_path)
+    LIMIT as FLASH_LIMIT, TC_HEAD_DIMS, bf16_ulp, excess as flash_excess,
+    tensor_core_path)
 from repro_torch.kernels.flash_attention import \
     flash_attention as LMA  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan as LMM  # noqa: E402
@@ -2037,12 +2062,16 @@ FLASH_GROUPS = (1, 4, 8)
 RMS_SHAPES = ((1, 64), (7, 80), (4, 2048), (4096, 2048), (3, 8192),
               (4, 16384), (1024, 16384), (528, 2048), (529, 2048),
               (1056, 2048), (1057, 2048), (2112, 2048), (2113, 2048),
-              (2, 16392), (3, 32768), (3, 32776))
+              (2, 16392), (3, 32768), (3, 32776),
+              # gemma3-4b served: the layer norms at D 2560, the qk-norm's
+              # q and k at hd 256 (8 and 4 heads a row), prefill and decode
+              (1024, 2560), (4, 2560), (8192, 256), (4096, 256), (32, 256),
+              (16, 256))
 LM_VS_PLAIN_PROMPT = 300
 LM_VS_PLAIN_STEPS = 8
-#: The requests of the traced pass of the rwkv6 and granite serving
-#: phases (one batch of the 4 slots): their whole drains traced took 40-80
-#: s, which the script's time limit no longer has room for.
+#: The requests of the traced pass of every serving phase but jamba's and
+#: whisper's (one batch of the 4 slots): the whole drains traced took
+#: 40-80 s each, which the script's time limit no longer has room for.
 TRACE_REQUESTS = 4
 SERVE_ARGV = ["--arch", "llama3.2-1b", "--requests", "16", "--slots", "4",
               "--max-seq", "2048", "--max-new", "32", "--prompt-min", "128",
@@ -2105,6 +2134,15 @@ JAMBA_SCAN_FLOOR = 1e-6
 #: Router-probability gap under which the card and the CPU may route a
 #: token to different experts in f32.
 MOE_MARGIN = 1e-5
+#: gemma3-4b at full width and depth: K5 at hd 256 on the tensor cores,
+#: qk-norm's two K8s a layer.
+GEMMA = "gemma3-4b"
+GEMMA_PARAMS = 3_879_925_248
+#: gemma3_lm_vs_plain: one period of the layer pattern (five local layers,
+#: one global), and a prompt past the local layers' window of 1024, so that
+#: the window masks in the prefill and in every decode step.
+GEMMA_PERIOD = 6
+GEMMA_VS_PLAIN_PROMPT = 1100
 #: whisper-large-v3: whisper_lm_vs_plain cuts both stacks to WHISPER_CUT
 #: layers; serve_whisper_at_size serves WHISPER_BATCH clips of 1500 frames,
 #: a WHISPER_PROMPT-token prompt each (the start-of-transcript sequence's
@@ -2154,8 +2192,8 @@ def flash_cases():
 
 def phase_flash_attention_vs_plain():
     """K5 against flash_attention_ref, both on the card, traced: every bf16
-    case with hd 64 or 128 must count in ``tc_launches`` and run the
-    tensor-core kernel, every other case the SIMT kernel (the kernels'
+    case with hd 64, 80, 128 or 256 must count in ``tc_launches`` and run
+    the tensor-core kernel, every other case the SIMT kernel (the kernels'
     names in the trace)."""
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
@@ -2219,7 +2257,7 @@ def phase_flash_attention_vs_plain():
             or ran != {"tensor_core": n_tc, "simt": n - n_tc}):
         fail(f"flash_attention: {launches} launches ({tc_launches} "
              f"tensor-core; the trace: {ran}) for {n} cases ({n_tc} bf16 "
-             f"with hd 64 or 128)")
+             f"with hd in {TC_HEAD_DIMS})")
     emit({"phase": "flash_attention_vs_plain", "cases": n,
           "tensor_core_cases": n_tc, "kernels_traced": ran,
           "max_abs_err": worst, "limit": {str(d).split(".")[1]: l
@@ -2305,31 +2343,38 @@ def lm_run(cfg, model, device, prompt, n_steps, forced=None):
     return out, fed, eng.cache
 
 
-def phase_lm_vs_plain():
-    """llama3.2-1b at full width cut to 2 layers, f32, one seeded set of
-    parameters: a 300-token prefill and 8 decode steps on the card (K5, K8)
-    and on the CPU (plain versions), the card fed the CPU's greedy
-    tokens."""
+def phase_lm_vs_plain(phase="lm_vs_plain", arch="llama3.2-1b", layers=2,
+                      prompt_len=LM_VS_PLAIN_PROMPT):
+    """``arch`` at full width cut to its first ``layers`` layers, f32, one
+    seeded set of parameters: a ``prompt_len``-token prefill and
+    LM_VS_PLAIN_STEPS decode steps on the card (K5, K8) and on the CPU
+    (plain versions), the card fed the CPU's greedy tokens
+    (:func:`compare_lm`)."""
     import copy
 
     from repro_torch import models
     from repro_torch.configs import base as CB
-    cfg = CB.get_config("llama3.2-1b").replace(
-        num_layers=2, dtype="float32", param_dtype="float32")
+    cfg = CB.get_config(arch).replace(
+        num_layers=layers, dtype="float32", param_dtype="float32")
     t0 = time.perf_counter()
     cpu_model = models.init_params(cfg, torch.Generator().manual_seed(0),
                                    "cpu")
     gpu_model = copy.deepcopy(cpu_model).to(DEV)
-    out, _, _ = compare_lm("lm_vs_plain", cfg, cpu_model, gpu_model)
+    out, _, _ = compare_lm(phase, cfg, cpu_model, gpu_model, prompt_len)
     if out["k5_launches"] != cfg.num_layers or out["k6_launches"] != 0:
-        fail(f"lm_vs_plain: {out} launches on the card")
-    emit({"phase": "lm_vs_plain", "arch": "llama3.2-1b", **out,
+        fail(f"{phase}: {out} launches on the card")
+    del cpu_model, gpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": phase, "arch": arch,
+          "windows": cfg.window_pattern, **out,
           "seconds": time.perf_counter() - t0})
 
 
-def compare_lm(phase, cfg, cpu_model, gpu_model):
-    """A ``LM_VS_PLAIN_PROMPT``-token prefill and ``LM_VS_PLAIN_STEPS``
-    decode steps of ``cfg`` on the CPU and on the card, the card fed the
+def compare_lm(phase, cfg, cpu_model, gpu_model,
+               prompt_len=LM_VS_PLAIN_PROMPT):
+    """A ``prompt_len``-token prefill and ``LM_VS_PLAIN_STEPS`` decode
+    steps of ``cfg`` on the CPU and on the card, the card fed the
     CPU's greedy tokens: logits within 1e-3, greedy tokens equal where the
     CPU's top-2 margin exceeds 1e-2, K8 launched :func:`k8_per_forward`
     times a forward, K7 once per mamba layer in the prefill and every K5
@@ -2337,7 +2382,7 @@ def compare_lm(phase, cfg, cpu_model, gpu_model):
     what it read and the last caches of the CPU and the card."""
     rng = np.random.default_rng(0)
     prompt = [int(t) for t in rng.integers(2, cfg.vocab_size - 1,
-                                           LM_VS_PLAIN_PROMPT)]
+                                           prompt_len)]
     cpu, forced, cpu_cache = lm_run(cfg, cpu_model, "cpu", prompt,
                                     LM_VS_PLAIN_STEPS)
     k5, k5_tc, k6, k7, k8 = (LMA.launches, LMA.tc_launches, LMW.launches,
@@ -2368,7 +2413,7 @@ def compare_lm(phase, cfg, cpu_model, gpu_model):
         fail(f"{phase}: logits max|d| {worst} over 1e-3")
     return {"layers": cfg.num_layers, "d_model": cfg.d_model,
             "vocab": cfg.vocab_size, "dtype": "float32",
-            "prompt": LM_VS_PLAIN_PROMPT, "decode_steps": LM_VS_PLAIN_STEPS,
+            "prompt": prompt_len, "decode_steps": LM_VS_PLAIN_STEPS,
             "logits_max_abs_err": worst, "limit": 1e-3,
             "steps_compared": len(cpu), "steps_with_clear_margin": clear,
             "greedy_equal": agree, "k5_launches": k5,
@@ -2390,9 +2435,13 @@ def tc_attention(cfg):
 
 
 def k8_per_forward(cfg):
-    """K8 launches of one forward: two norms a layer, the final norm, and
-    the norm inside each mamba mixer (at d_in)."""
-    return 2 * cfg.num_layers + 1 + mixer_counts(cfg)["mamba"]
+    """K8 launches of one forward: two norms a layer, the final norm, the
+    norm inside each mamba mixer (at d_in), and under qk-norm two in each
+    attention layer (q's and k's, ``models/attention.py``)."""
+    n = mixer_counts(cfg)
+    qk = 2 * n["attention"] if cfg.attention is not None \
+        and cfg.attention.qk_norm else 0
+    return 2 * cfg.num_layers + 1 + n["mamba"] + qk
 
 
 def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
@@ -2541,7 +2590,8 @@ def phase_serve_at_size(phase="serve_at_size", arch="llama3.2-1b",
             "k7_prefill": k7_pre, "k7_decode": k7 - k7_pre,
             "k8_prefill": k8_pre, "k8_decode": k8 - k8_pre,
             "mamba_layers": n["mamba"], "forwards_prefill": args.requests,
-            "forwards_decode": len(step_ms)}
+            "forwards_decode": len(step_ms), "params": n_params,
+            "attention_layers": n["attention"]}
 
 
 def rwkv6_inputs(gen, BH, T, n, w_range, with_s0):
@@ -4644,17 +4694,22 @@ def flash_entry(name, path, launches, tc_launches, flash_err, BH, BKV, S,
             "causal": causal, "path": path}
 
 
-def lm_entries(serve_launches, jamba_launches, whisper_launches, flash_err,
-               whisper_flash, rms_err):
+def lm_entries(serve_launches, jamba_launches, whisper_launches,
+               gemma_launches, flash_err, whisper_flash, rms_err):
     """K5 at one prefill layer of llama3.2-1b (Sq = Sk = 1024, B*H = 32,
     B*KV = 8, hd 64) and of jamba (B*H = 64, B*KV = 8, hd 128), bf16,
     causal, and at one encoder layer of whisper as it serves 8 clips (Sq =
     Sk = 1500, B*H = B*KV = 160, hd 64, non-causal; the worst error of
-    whisper's own cases in flash_attention_vs_plain beside it); K8 in
+    whisper's own cases in flash_attention_vs_plain beside it); at one
+    prefill layer of gemma3-4b (B*H = 8, B*KV = 4, hd 256; its local
+    layers' window of 1024 masks nothing at S 1024) and of stablelm-3b
+    (B*H = B*KV = 32, hd 80; served by no phase), bf16, causal; K8 in
     bf16 at llama's 1024 x 2048 (prefill) and 4 x 2048 (a decode step of
-    four slots), and jamba's at D 8192 (its layer norms) and 16 384 (the
-    norm inside each mamba mixer), 1024 rows and 4: device ms, with-host
-    ms, plain ms, the library call's ms, the bound."""
+    four slots), jamba's at D 8192 (its layer norms) and 16 384 (the norm
+    inside each mamba mixer), 1024 rows and 4, and gemma3-4b's at D 2560
+    (1024 rows and 4) and at its qk-norm's 256 (q's and k's rows of 1024
+    tokens and of 4): device ms, with-host ms, plain ms, the library
+    call's ms, the bound."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(2)
     bf = torch.bfloat16
@@ -4674,6 +4729,13 @@ def lm_entries(serve_launches, jamba_launches, whisper_launches, flash_err,
     wh["whisper_cases_err_over_limit"] = max(c["err_over_limit"]
                                              for c in whisper_flash)
     out.append(wh)
+    out.append(flash_entry("flash_attention_gemma",
+                           "serve_gemma3_at_size prefill",
+                           gemma_launches["k5"], gemma_launches["k5_tc"],
+                           flash_err, 8, 4, 1024, 256, gen))
+    out.append(flash_entry("flash_attention_stablelm", "none: no phase "
+                           "serves stablelm-3b", 0, 0, flash_err, 32, 32,
+                           1024, 80, gen))
     src = "src/repro_torch/kernels/csrc/"
     # jamba's norms a forward: at D 8192 two a layer and the final one, at
     # D 16 384 one a mamba mixer
@@ -4691,6 +4753,23 @@ def lm_entries(serve_launches, jamba_launches, whisper_launches, flash_err,
                16384, inner_pre),
               ("rmsnorm_jamba_mamba_decode", "serve_jamba_at_size decode", 4,
                16384, inner_dec))
+    # gemma3's a forward: at D 2560 two a layer and the final one; at hd
+    # 256 the qk-norm's, one over q's 8 heads and one over k's 4 a layer
+    qk_pre, qk_dec = (gemma_launches["attention_layers"] * gemma_launches[k]
+                      for k in ("forwards_prefill", "forwards_decode"))
+    gemma = "serve_gemma3_at_size "
+    shapes += (("rmsnorm_gemma", gemma + "prefill", 1024, 2560,
+                gemma_launches["k8_prefill"] - 2 * qk_pre),
+               ("rmsnorm_gemma_decode", gemma + "decode", 4, 2560,
+                gemma_launches["k8_decode"] - 2 * qk_dec),
+               ("rmsnorm_gemma_qnorm", gemma + "prefill", 1024 * 8, 256,
+                qk_pre),
+               ("rmsnorm_gemma_knorm", gemma + "prefill", 1024 * 4, 256,
+                qk_pre),
+               ("rmsnorm_gemma_qnorm_decode", gemma + "decode", 4 * 8, 256,
+                qk_dec),
+               ("rmsnorm_gemma_knorm_decode", gemma + "decode", 4 * 4, 256,
+                qk_dec))
     for name, path, rows, D, launches in shapes:
         x = torch.randn((rows, D), generator=gen, device=DEV).to(bf)
         w = (torch.randn((D,), generator=gen, device=DEV) * 0.1).to(bf)
@@ -4928,16 +5007,25 @@ def k8_sass(lm_build):
 
 def tensor_core_sass(lm_build):
     """K5's tensor-core kernel in the LM library: per instantiation
-    (``flash_attention_kernel_sm90<64>``, ``<128>``), its ``HGMMA``
-    instructions in ``cuobjdump -sass`` and ptxas's registers and spills.
-    Fails unless both instantiations are there and each issues HGMMA."""
+    (``flash_attention_kernel_sm90<HD>``, HD in ``TC_HEAD_DIMS``), its
+    ``HGMMA`` instructions in ``cuobjdump -sass`` and ptxas's registers and
+    spills.  Fails unless every instantiation is there once and issues
+    HGMMA, or if one spills."""
     regs = ptxas_by_entry(lm_build.log)
-    out = {name: {"hgmma": ops.count("HGMMA"), "ptxas": regs.get(name, [])}
-           for name, ops in sass_functions(lm_build.path).items()
-           if "flash_attention_kernel_sm90" in name}
-    if len(out) != 2 or not all(v["hgmma"] > 0 for v in out.values()):
-        fail(f"build: flash_attention_kernel_sm90 without HGMMA in its SASS: "
-             f"{out}")
+    funcs = sass_functions(lm_build.path)
+    out = {}
+    for hd in TC_HEAD_DIMS:
+        hit = [f for f in funcs
+               if f"flash_attention_kernel_sm90ILi{hd}E" in f]
+        if len(hit) != 1 or funcs[hit[0]].count("HGMMA") == 0:
+            fail(f"build: flash_attention_kernel_sm90<{hd}> not in the SASS "
+                 f"once with HGMMA ({hit})")
+        ptxas = regs.get(hit[0], [])
+        if any("spill" in ln and ", 0 bytes spill stores" not in ln
+               for ln in ptxas):
+            fail(f"build: flash_attention_kernel_sm90<{hd}> spills: {ptxas}")
+        out[f"<{hd}>"] = {"hgmma": funcs[hit[0]].count("HGMMA"),
+                          "ptxas": ptxas}
     return out
 
 
@@ -4978,7 +5066,7 @@ def main():
     flash_err, whisper_flash = phase_flash_attention_vs_plain()
     rms_err = phase_rmsnorm_vs_plain()
     phase_lm_vs_plain()
-    serve_launches = phase_serve_at_size()
+    serve_launches = phase_serve_at_size(trace_requests=TRACE_REQUESTS)
     scan_err = phase_rwkv6_scan_vs_plain()
     phase_rwkv6_lm_vs_plain()
     rwkv6_launches = phase_serve_at_size("serve_rwkv6_at_size", "rwkv6-1.6b",
@@ -4991,6 +5079,13 @@ def main():
     granite_launches = phase_serve_at_size("serve_granite_at_size",
                                            MESH_ARCH,
                                            trace_requests=TRACE_REQUESTS)
+    phase_lm_vs_plain("gemma3_lm_vs_plain", GEMMA, GEMMA_PERIOD,
+                      GEMMA_VS_PLAIN_PROMPT)
+    gemma_launches = phase_serve_at_size("serve_gemma3_at_size", GEMMA,
+                                         trace_requests=TRACE_REQUESTS)
+    if gemma_launches["params"] != GEMMA_PARAMS:
+        fail(f"serve_gemma3_at_size: {gemma_launches['params']} parameters,"
+             f" gemma3-4b has {GEMMA_PARAMS}")
     phase_whisper_lm_vs_plain()
     whisper_launches = phase_serve_whisper_at_size()
     t_train = time.perf_counter()
@@ -5025,7 +5120,8 @@ def main():
                               open_abs_err, step_abs_err)
                + [oracle_entry(oracle_args)]
                + lm_entries(serve_launches, jamba_launches, whisper_launches,
-                            flash_err, whisper_flash, rms_err)
+                            gemma_launches, flash_err, whisper_flash,
+                            rms_err)
                + rwkv6_entries(rwkv6_launches, scan_err)
                + mamba_entries(jamba_launches, mamba_err))
     train_keys = {"flash_attention": ("k5", "k5_per_step"),
@@ -5050,8 +5146,10 @@ def main():
             k = "k6" if entry["name"] == "rwkv6_scan" else "k7"
             entry["train_launches"] = train_lm_launches[k]
             entry["mesh_launches"] = mesh_launches[k]
-        kern = entry["name"].split("_jamba")[0].split("_whisper")[0].split(
-            "_decode")[0]
+        kern = entry["name"]
+        for model in ("_jamba", "_whisper", "_gemma", "_stablelm",
+                      "_decode"):
+            kern = kern.split(model)[0]
         if kern in grad_excess_by_kernel:
             entry["grad_max_err_over_limit"] = grad_excess_by_kernel[kern]
         # the sweep layer's path: K1 in the closed grids, K1-open in the

@@ -13,10 +13,10 @@
 //
 // Two kernels, chosen by the operands in flash_attention_launch below
 // (kernels/flash_attention.py: tensor_core_path states the same rule):
-// bf16 with hd 64 or 128 goes to flash_attention_sm90.cu (TMA, wgmma);
-// f32 of every hd, whose 2e-5 limit rules out TF32, and bf16 of every
-// other hd (gemma3's 256, stablelm's 80) stay on the SIMT kernel of this
-// file.
+// bf16 with hd 64, 80, 128 or 256 (every attention layer of the catalog's
+// bf16 models) goes to flash_attention_sm90.cu (TMA, wgmma); f32 of every
+// hd, whose 2e-5 limit rules out TF32, and bf16 of every other hd (the
+// tiny test models' 16) stay on the SIMT kernel of this file.
 //
 // Design.  One CTA of 256 threads per (bh, 64-row q-block); it loops over
 // 64-row k-blocks.  q, k and v tiles live in shared memory as f32 (the
@@ -33,8 +33,9 @@
 // query heads of hd 64 they are 4.3 GFLOP, 64 us on the f32 SIMT pipes
 // (67 TFLOP/s) that this kernel uses, out of shared memory, with no TMA
 // and synchronous tile loads.  It serves the operands the tensor-core
-// kernel does not take, right and simple; a 3xTF32 path for f32 and
-// wider head dims on the tensor cores are later work (ROADMAP).
+// kernel does not take, right and simple: f32, where a 3xTF32 path on the
+// tensor cores is later work (ROADMAP), and bf16 head dims no model of
+// the catalog has.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -285,7 +286,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int dtype, cudaStream_t stream) {
   if (hd < 8 || hd > 256 || hd % 8 != 0 || BKV <= 0 || BH % BKV != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && (hd == 64 || hd == 128))
+  if (dtype == 1 && (hd == 64 || hd == 80 || hd == 128 || hd == 256))
     return flash_attention_sm90_launch(q, k, v, o, BH, BKV, Sq, Sk, hd,
                                        causal, window, softcap, scale,
                                        stream);

@@ -6,9 +6,10 @@ GQA (query head ``b`` reads kv head ``b // (BH // BKV)``) and a logit
 softcap, f32 accumulation (plain version
 :func:`repro_torch.kernels.ref.flash_attention_ref`).  Two kernels behind
 one C entry point, chosen by the operands (:func:`tensor_core_path`):
-bf16 with hd 64 or 128 runs on the tensor cores
-(``csrc/flash_attention_sm90.cu``: TMA, ``wgmma``), everything else on the
-SIMT kernel (``csrc/flash_attention.cu``).
+bf16 with hd 64, 80, 128 or 256 runs on the tensor cores
+(``csrc/flash_attention_sm90.cu``: TMA, ``wgmma``), everything else (f32,
+and bf16 at the tiny test models' head dims) on the SIMT kernel
+(``csrc/flash_attention.cu``).
 
 Layout: q (BH, Sq, hd), k / v (BKV, Sk, hd); :func:`repro_torch.kernels.ops.attention`
 maps the model's (B, S, H, hd) tensors to it and back.
@@ -33,18 +34,23 @@ from . import lm_lib, ref
 
 #: Largest head dim the kernel takes (a multiple of 8 up to it).
 MAX_HEAD_DIM = 256
-#: Head dims of the tensor-core path, bf16 only: llama3.2-1b's 64 and
-#: jamba's 128.
-TC_HEAD_DIMS = (64, 128)
+#: Head dims of the tensor-core path, bf16 only: llama3.2-1b's 64,
+#: stablelm-3b's 80, jamba's 128 and gemma3-4b's 256.
+TC_HEAD_DIMS = (64, 80, 128, 256)
 #: K5 against its plain version: max|d| within this in f32; in bf16 this
 #: caps the limit of :func:`excess`.
 LIMIT = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: Query rows a tile of the backward recomputes its scores for.
 BWD_TILE = 512
 #: (query rows, keys) of a tile: the tensor-core kernel's CTA
-#: (``flash_attention_sm90.cu``: BM, BN) and the SIMT kernel's (BQ, BK).
+#: (``flash_attention_sm90.cu``: BM, BN) up to hd TC_WIDE_HD, and the SIMT
+#: kernel's (BQ, BK).
 TC_TILE = (128, 64)
 SIMT_TILE = (64, 64)
+#: Above this head dim the tensor-core kernel runs one consumer warpgroup
+#: a CTA instead of two: half of TC_TILE's query rows
+#: (``Tiles<HD>::BM``).
+TC_WIDE_HD = 128
 
 
 def tensor_core_path(dtype, hd) -> bool:
@@ -54,6 +60,15 @@ def tensor_core_path(dtype, hd) -> bool:
     stays there because its 2e-5 limit rules out TF32.  The C entry point
     ``flash_attention_launch`` makes the same choice."""
     return dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+
+
+def tile(tc: bool, hd) -> tuple[int, int]:
+    """(query rows, keys) of the tile of the kernel :func:`tensor_core_path`
+    picks (``tc``) at head dim ``hd``."""
+    if not tc:
+        return SIMT_TILE
+    BM, BN = TC_TILE
+    return (BM // 2, BN) if hd > TC_WIDE_HD else TC_TILE
 
 
 def bf16_ulp(x):
@@ -109,12 +124,13 @@ def check_operands(q, k, v):
                              f"aligned")
 
 
-def tiles(Sq, Sk, causal, window, tc: bool) -> int:
-    """The (query block, key block) tiles a launch computes for one head:
-    the key blocks each query block visits, as the kernels' loops bound
-    them (``key_blocks`` in ``flash_attention_sm90.cu``, the loop's break
-    and skip in ``flash_attention.cu``)."""
-    BM, BN = TC_TILE if tc else SIMT_TILE
+def tiles(Sq, Sk, causal, window, tc: bool, hd) -> int:
+    """The (query block, key block) tiles a launch at head dim ``hd``
+    computes for one head: the key blocks each query block visits, as the
+    kernels' loops bound them (``key_blocks`` in
+    ``flash_attention_sm90.cu``, the loop's break and skip in
+    ``flash_attention.cu``)."""
+    BM, BN = tile(tc, hd)
     nk = -(-Sk // BN)
     n = 0
     for q0 in range(0, Sq, BM):
@@ -133,8 +149,8 @@ def meta_cost(q, k, causal, window) -> tuple[float, float]:
     BH, Sq, hd = q.shape
     BKV, Sk, _ = k.shape
     tc = tensor_core_path(q.dtype, hd)
-    BM, BN = TC_TILE if tc else SIMT_TILE
-    flops = 4.0 * hd * BM * BN * BH * tiles(Sq, Sk, causal, window, tc)
+    BM, BN = tile(tc, hd)
+    flops = 4.0 * hd * BM * BN * BH * tiles(Sq, Sk, causal, window, tc, hd)
     n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
     return flops, n_bytes
 

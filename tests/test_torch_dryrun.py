@@ -434,17 +434,21 @@ def test_meta_without_a_counter_raises():
     (384, 384, True, 100), (333, 384, True, 64), (128, 256, False, 70)])
 def test_flash_tiles_are_the_tiles_with_an_unmasked_pair(tc, Sq, Sk, causal,
                                                          window):
-    BM, BN = FA.TC_TILE if tc else FA.SIMT_TILE
-    q = np.arange(-(-Sq // BM) * BM)[:, None]
-    k = np.arange(Sk)[None, :]
-    ok = np.ones((q.size, Sk), bool)
-    if causal:
-        ok &= q >= k
-    if window:
-        ok &= (q - k) < window
-    want = sum(bool(ok[q0:q0 + BM, k0:k0 + BN].any())
-               for q0 in range(0, q.size, BM) for k0 in range(0, Sk, BN))
-    assert FA.tiles(Sq, Sk, causal, window, tc) == want
+    """At each head dim of the path, for the tile :func:`FA.tile` gives
+    (``test_torch_flash_split.py`` holds it to ``Tiles<HD>::BM`` in
+    ``flash_attention_sm90.cu``)."""
+    for hd in FA.TC_HEAD_DIMS if tc else (64,):
+        BM, BN = FA.tile(tc, hd)
+        q = np.arange(-(-Sq // BM) * BM)[:, None]
+        k = np.arange(Sk)[None, :]
+        ok = np.ones((q.size, Sk), bool)
+        if causal:
+            ok &= q >= k
+        if window:
+            ok &= (q - k) < window
+        want = sum(bool(ok[q0:q0 + BM, k0:k0 + BN].any())
+                   for q0 in range(0, q.size, BM) for k0 in range(0, Sk, BN))
+        assert FA.tiles(Sq, Sk, causal, window, tc, hd) == want
 
 
 def test_collective_wire_bytes_follow_the_ring():

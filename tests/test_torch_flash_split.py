@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.kernels import build, lm_lib, ref
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, TC_HEAD_DIMS,
-                                                 excess, tensor_core_path)
+                                                 excess, tensor_core_path,
+                                                 tile)
 
 #: The matrix of ``chip_smoke.py``'s ``flash_attention_vs_plain``.
 FLASH_HDS = (16, 64, 80, 128, 256)
@@ -42,9 +43,10 @@ def two_threads():
     torch.set_num_threads(n)
 
 
-def emulate(q, k, v, *, causal, window, softcap):
+def emulate(q, k, v, *, causal, window, softcap, scale=None):
     """The tensor-core kernel's arithmetic on the CPU, for (one bf16 P,
-    a bf16 hi + lo P): S in f32 from bf16 q, k; the scale, the softcap and
+    a bf16 hi + lo P): S in f32 from bf16 q, k; the scale (the wrapper's
+    1 / sqrt(hd) unless given), the softcap and
     the -1e30 masks; per 64-key block the running max m_b, p = exp(s - m_b)
     and its f32 row sum; p rounded, times V in f32.  The online rescaling
     by corr = exp(m_prev - m_new) is folded into one factor per block,
@@ -57,7 +59,9 @@ def emulate(q, k, v, *, causal, window, softcap):
     pad = (0, 0, 0, nb * BLOCK_K - Sk)      # the kernel's zero-filled rows
     kf = torch.nn.functional.pad(k.float(), pad).repeat_interleave(g, 0)
     vf = torch.nn.functional.pad(v.float(), pad).repeat_interleave(g, 0)
-    s = torch.bmm(q.float(), kf.transpose(1, 2)) * (1.0 / math.sqrt(hd))
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    s = torch.bmm(q.float(), kf.transpose(1, 2)) * scale
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     qp = torch.arange(Sq)[:, None]
@@ -113,21 +117,61 @@ ADMITTED_HDS = range(8, MAX_HEAD_DIM + 1, 8)
 
 @pytest.mark.parametrize("hd", ADMITTED_HDS)
 def test_path_choice(hd):
-    """bf16 with hd 64 or 128 takes the tensor cores; f32 of every hd and
-    bf16 of every other hd the wrapper admits take the SIMT kernel."""
-    assert tensor_core_path(torch.bfloat16, hd) == (hd in (64, 128))
+    """bf16 with hd in TC_HEAD_DIMS (64, 80, 128, 256: every bf16 attention
+    layer of the catalog) takes the tensor cores; f32 of every hd and bf16
+    of every other hd the wrapper admits take the SIMT kernel."""
+    assert TC_HEAD_DIMS == (64, 80, 128, 256)
+    assert tensor_core_path(torch.bfloat16, hd) == (hd in TC_HEAD_DIMS)
     assert not tensor_core_path(torch.float32, hd)
 
 
 def test_c_entry_point_mirrors_the_path_choice():
     """``flash_attention_launch`` sends the same operands to the
-    tensor-core kernel as :func:`tensor_core_path` does."""
+    tensor-core kernel as :func:`tensor_core_path` does,
+    ``flash_attention_sm90_launch`` instantiates a kernel for each, and
+    :func:`tile` gives each the CTA's tile (``Tiles<HD>::BM``, ``BN``)."""
     src = (build.CSRC / "flash_attention.cu").read_text()
-    rule = re.search(r"if \(dtype == 1 && \(hd == (\d+) \|\| hd == (\d+)\)\)"
+    rule = re.search(r"if \(dtype == 1 && \(((?:hd == \d+(?: \|\| )?)+)\)\)"
                      r"\s*return flash_attention_sm90_launch\(", src)
     assert rule, "flash_attention_launch no longer states the rule"
-    assert tuple(int(h) for h in rule.groups()) == TC_HEAD_DIMS
+    hds = tuple(int(h) for h in re.findall(r"hd == (\d+)", rule.group(1)))
+    assert hds == TC_HEAD_DIMS
+    sm90 = (build.CSRC / "flash_attention_sm90.cu").read_text()
+    cases = tuple(int(h) for h in re.findall(
+        r"case (\d+):\s*return launch<\1>\(", sm90))
+    assert cases == TC_HEAD_DIMS
+    bm = re.search(r"int BM = HD > (\d+) \? (\d+) : (\d+);", sm90)
+    bn = re.search(r"constexpr int BN = (\d+);", sm90)
+    assert bm and bn, "flash_attention_sm90.cu no longer states its tile"
+    above, wide, narrow = (int(x) for x in bm.groups())
+    for hd in TC_HEAD_DIMS:
+        BM = wide if hd > above else narrow
+        assert tile(True, hd) == (BM, int(bn.group(1))), hd
     assert lm_lib.DTYPE_CODE[torch.bfloat16] == 1
+
+
+@pytest.mark.parametrize("causal,window,softcap", MASKS)
+def test_hd80_padded_tile_equals_the_unpadded(causal, window, softcap,
+                                               two_threads):
+    """The hd-80 tile's contract: the kernel stages q, k, v in two 64-column
+    boxes, columns 80-127 zero-filled by TMA, and scales by the true hd's
+    1 / sqrt(80).  The emulation on operands zero-padded to 128 columns
+    gives, in its first 80 columns, the unpadded emulation's output bit for
+    bit (zero columns add nothing to S and contribute nothing to the
+    first 80 columns of P V), and zeros in the pad."""
+    rng = np.random.default_rng(80)
+    S, hd, wide = 300, 80, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (n, S, hd), dtype=np.float32)).to(torch.bfloat16) for n in (8, 2, 2))
+    pad = lambda t: torch.nn.functional.pad(t, (0, wide - hd))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    with torch.inference_mode():
+        want = emulate(q, k, v, **kw)
+        got = emulate(pad(q), pad(k), pad(v), scale=1.0 / math.sqrt(hd), **kw)
+    for g, w in zip(got, want):
+        assert g.shape == (8, S, wide)
+        assert torch.equal(g[..., :hd], w)
+        assert not g[..., hd:].any()
 
 
 def test_tensor_core_source_contract():
