@@ -59,6 +59,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import trace as TR
 from repro_torch.device import shard_count, splits
 
 from . import policy as P
@@ -444,202 +445,215 @@ def sweep_stream(configs, *, target_cs: int = 300,
     (``None``: iff there is more than one); a sharded sweep's checkpoint
     never resumes an unsharded one's, nor the reverse.
     """
-    device = xdes.resolve_device(device)
-    cols = configs if isinstance(configs, dict) else \
-        P.config_columns(configs)
-    arrs = P.encode_columns(cols, validate=isinstance(configs, dict),
-                            strict=strict)
-    C = arrs["policy"].shape[0]
-    open_loop = bool((np.asarray(arrs["arrival"]) != P.AR_CLOSED).any())
-    if reduce is not None:
-        if C % reduce.group:
-            raise ValueError(f"C={C} not a multiple of reduce.group="
-                             f"{reduce.group}")
-        if reduce.cell_ids.shape != (C // reduce.group,):
-            raise ValueError("cell_ids must have one entry per group")
+    on = TR.gate()
+    with TR.span(on, "stream.sweep"):
+        device = xdes.resolve_device(device)
+        with TR.span(on, "stream.encode"):
+            cols = configs if isinstance(configs, dict) else \
+                P.config_columns(configs)
+            arrs = P.encode_columns(cols, validate=isinstance(configs, dict),
+                                    strict=strict)
+        C = arrs["policy"].shape[0]
+        open_loop = bool((np.asarray(arrs["arrival"]) != P.AR_CLOSED).any())
+        if reduce is not None:
+            if C % reduce.group:
+                raise ValueError(f"C={C} not a multiple of reduce.group="
+                                 f"{reduce.group}")
+            if reduce.cell_ids.shape != (C // reduce.group,):
+                raise ValueError("cell_ids must have one entry per group")
 
-    auto_dt, steps_arr = xdes.plan_schedule_columns(cols, target_cs)
-    dt = auto_dt if dt is None else np.broadcast_to(
-        np.asarray(dt, np.float32), (C,)).copy()
-    if n_steps is None:
-        if int(steps_arr.max()) > xdes.MAX_STEPS and not bucket_steps:
-            over = int((steps_arr > xdes.MAX_STEPS).sum())
-            warnings.warn(
-                f"step cap {xdes.MAX_STEPS} truncates {over}/{C} configs "
-                f"below target_cs={target_cs} (see plan_schedule); "
-                f"bucket_steps=True keeps fast cells fully sampled.",
-                stacklevel=2)
-        n_steps = min(int(steps_arr.max()), xdes.MAX_STEPS)
-        if early_exit is None:
-            early_exit = True
-    elif early_exit is None:
-        early_exit = False
-    arrs["dt"] = np.asarray(dt, np.float32)
+        with TR.span(on, "stream.plan"):
+            auto_dt, steps_arr = xdes.plan_schedule_columns(cols, target_cs)
+            dt = auto_dt if dt is None else np.broadcast_to(
+                np.asarray(dt, np.float32), (C,)).copy()
+            if n_steps is None:
+                if int(steps_arr.max()) > xdes.MAX_STEPS and not bucket_steps:
+                    over = int((steps_arr > xdes.MAX_STEPS).sum())
+                    warnings.warn(
+                        f"step cap {xdes.MAX_STEPS} truncates {over}/{C} "
+                        f"configs below target_cs={target_cs} (see "
+                        f"plan_schedule); "
+                        f"bucket_steps=True keeps fast cells fully sampled.",
+                        stacklevel=2)
+                n_steps = min(int(steps_arr.max()), xdes.MAX_STEPS)
+                if early_exit is None:
+                    early_exit = True
+            elif early_exit is None:
+                early_exit = False
+            arrs["dt"] = np.asarray(dt, np.float32)
 
-    T = max_threads or int(arrs["threads"].max())
-    if T < int(arrs["threads"].max()):
-        raise ValueError("max_threads smaller than widest config")
-    if block_steps is None:
-        block_steps = xdes.DEFAULT_BLOCK_STEPS
-    tc = int(target_cs) if early_exit else 0
+            T = max_threads or int(arrs["threads"].max())
+            if T < int(arrs["threads"].max()):
+                raise ValueError("max_threads smaller than widest config")
+            if block_steps is None:
+                block_steps = xdes.DEFAULT_BLOCK_STEPS
+            tc = int(target_cs) if early_exit else 0
 
-    shard = splits(shard, device)
-    n_shards = shard_count(device) if shard else 1
-    group = reduce.group if reduce is not None else 1
-    quantum = group * n_shards // math.gcd(group, n_shards)
-    if chunk is None:
-        chunk = plan_chunks(C, T, mem_mb=mem_mb, quantum=quantum,
-                            open_loop=open_loop, device=device)
-    elif chunk % quantum:
-        raise ValueError(f"chunk={chunk} not a multiple of the "
-                         f"group/shard quantum {quantum}")
-    bpc = bytes_per_config(T, open_loop=open_loop)
-    budget_mb = memory_budget_bytes(mem_mb, device) / 2**20
+            shard = splits(shard, device)
+            n_shards = shard_count(device) if shard else 1
+            group = reduce.group if reduce is not None else 1
+            quantum = group * n_shards // math.gcd(group, n_shards)
+            if chunk is None:
+                chunk = plan_chunks(C, T, mem_mb=mem_mb, quantum=quantum,
+                                    open_loop=open_loop, device=device)
+            elif chunk % quantum:
+                raise ValueError(f"chunk={chunk} not a multiple of the "
+                                 f"group/shard quantum {quantum}")
+            bpc = bytes_per_config(T, open_loop=open_loop)
+            budget_mb = memory_budget_bytes(mem_mb, device) / 2**20
 
-    out = {f: np.empty(C, np.float32 if f in ("spin_cpu", "t_end")
-                       else np.int32) for f in SUMMARY_FIELDS}
-    if open_loop:
-        for f in OPEN_SUMMARY_FIELDS:
-            out[f] = np.empty(C, np.int32 if f in _OPEN_INT_FIELDS
-                              else np.float32)
-        out["lat_hist"] = np.empty((C, P.LAT_NBINS), np.int32)
-    new_wins = lambda: torch.zeros((reduce.n_cells, group),
-                                   dtype=torch.int32, device=device)
-    wins = new_wins() if reduce is not None else None
-    # Per-chunk cell accumulation needs every group's rows in one call:
-    # that holds in row order, but bucketing regroups rows by horizon —
-    # there the accumulator folds once at the end instead.
-    chunk_reduce = reduce is not None and not bucket_steps
-    as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    if bucket_steps:
-        buckets = xdes.plan_buckets(steps_arr)
-        plans = [(idx, min(int(steps_arr[idx].max()), xdes.MAX_STEPS))
-                 for idx in buckets]
-    else:
-        plans = [(None, int(n_steps))]
-
-    # deterministic flat chunk schedule: the unit of checkpoint/resume
-    chunk_plans = []
-    for idx, horizon in plans:
-        rows = C if idx is None else len(idx)
-        for lo in range(0, rows, chunk):
-            hi = min(lo + chunk, rows)
-            chunk_plans.append((idx, lo, hi, horizon))
-
-    failures: list = []
-    mgr = None
-    cursor = 0                     # chunks already committed (checkpoint)
-    if checkpoint_dir is not None:
-        from repro_torch.checkpoint.manager import CheckpointManager
-        mgr = CheckpointManager(checkpoint_dir, keep_last=2,
-                                async_save=False)
-        fp = _plan_fingerprint(
-            arrs, chunk=chunk, T=T, n_steps=int(n_steps),
-            target_cs=tc, backend=backend, bucket_steps=bucket_steps,
-            shard=shard, group=group)
-        template = {"out": {k: np.zeros_like(v) for k, v in out.items()},
-                    "wins": (np.zeros((reduce.n_cells, group), np.int32)
-                             if reduce is not None
-                             else np.zeros((1,), np.int32)),
-                    "cursor": np.zeros((), np.int64),
-                    "fingerprint": np.zeros_like(fp),
-                    "failures_json": np.zeros((), np.uint32)}
-        if resume:
-            step, tree = mgr.restore(template)
-            if tree is not None:
-                if not np.array_equal(np.asarray(tree["fingerprint"]), fp):
-                    raise ValueError(
-                        f"checkpoint in {checkpoint_dir!r} was written by "
-                        f"a different sweep plan; refusing to resume")
-                cursor = int(tree["cursor"])
-                for k in out:
-                    out[k][...] = np.asarray(tree["out"][k])
-                if reduce is not None:
-                    wins = as_dev(tree["wins"])
-                nfail = int(tree["failures_json"])
-                if nfail and failures_path and os.path.exists(
-                        failures_path):
-                    with open(failures_path) as f:
-                        failures = json.load(f)["failures"][:nfail]
-                if verbose:
-                    print(f"  stream resume: {cursor}/{len(chunk_plans)} "
-                          f"chunks restored from {checkpoint_dir}")
-
-    n_chunks = 0
-    run_steps = 0
-    for ci, (idx, lo, hi, horizon) in enumerate(chunk_plans):
-        n_chunks += 1
-        run_steps = max(run_steps, horizon)
-        if ci < cursor:
-            continue               # committed before the crash: restored
-        sel = slice(lo, hi) if idx is None else idx[lo:hi]
-        gidx = np.arange(lo, hi) if idx is None else np.asarray(idx[lo:hi])
-        part = {k: v[sel] for k, v in arrs.items()}
-        n = hi - lo
-        res = _run_chunk_resilient(part, horizon, T, backend,
-                                   int(block_steps), tc, open_loop, shard,
-                                   quantum, device, verbose)
-        for f in SUMMARY_FIELDS:
-            out[f][sel] = res[f]
+        out = {f: np.empty(C, np.float32 if f in ("spin_cpu", "t_end")
+                           else np.int32) for f in SUMMARY_FIELDS}
         if open_loop:
             for f in OPEN_SUMMARY_FIELDS:
+                out[f] = np.empty(C, np.int32 if f in _OPEN_INT_FIELDS
+                                  else np.float32)
+            out["lat_hist"] = np.empty((C, P.LAT_NBINS), np.int32)
+        new_wins = lambda: torch.zeros((reduce.n_cells, group),
+                                       dtype=torch.int32, device=device)
+        wins = new_wins() if reduce is not None else None
+        # Per-chunk cell accumulation needs every group's rows in one call:
+        # that holds in row order, but bucketing regroups rows by horizon —
+        # there the accumulator folds once at the end instead.
+        chunk_reduce = reduce is not None and not bucket_steps
+        as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        if bucket_steps:
+            buckets = xdes.plan_buckets(steps_arr)
+            plans = [(idx, min(int(steps_arr[idx].max()), xdes.MAX_STEPS))
+                     for idx in buckets]
+        else:
+            plans = [(None, int(n_steps))]
+
+        # deterministic flat chunk schedule: the unit of checkpoint/resume
+        chunk_plans = []
+        for idx, horizon in plans:
+            rows = C if idx is None else len(idx)
+            for lo in range(0, rows, chunk):
+                hi = min(lo + chunk, rows)
+                chunk_plans.append((idx, lo, hi, horizon))
+
+        failures: list = []
+        mgr = None
+        cursor = 0                     # chunks already committed (checkpoint)
+        if checkpoint_dir is not None:
+            from repro_torch.checkpoint.manager import CheckpointManager
+            mgr = CheckpointManager(checkpoint_dir, keep_last=2,
+                                    async_save=False)
+            fp = _plan_fingerprint(
+                arrs, chunk=chunk, T=T, n_steps=int(n_steps),
+                target_cs=tc, backend=backend, bucket_steps=bucket_steps,
+                shard=shard, group=group)
+            template = {"out": {k: np.zeros_like(v) for k, v in out.items()},
+                        "wins": (np.zeros((reduce.n_cells, group), np.int32)
+                                 if reduce is not None
+                                 else np.zeros((1,), np.int32)),
+                        "cursor": np.zeros((), np.int64),
+                        "fingerprint": np.zeros_like(fp),
+                        "failures_json": np.zeros((), np.uint32)}
+            if resume:
+                step, tree = mgr.restore(template)
+                if tree is not None:
+                    if not np.array_equal(np.asarray(tree["fingerprint"]), fp):
+                        raise ValueError(
+                            f"checkpoint in {checkpoint_dir!r} was written by "
+                            f"a different sweep plan; refusing to resume")
+                    cursor = int(tree["cursor"])
+                    for k in out:
+                        out[k][...] = np.asarray(tree["out"][k])
+                    if reduce is not None:
+                        wins = as_dev(tree["wins"])
+                    nfail = int(tree["failures_json"])
+                    if nfail and failures_path and os.path.exists(
+                            failures_path):
+                        with open(failures_path) as f:
+                            failures = json.load(f)["failures"][:nfail]
+                    if verbose:
+                        print(f"  stream resume: {cursor}/{len(chunk_plans)} "
+                              f"chunks restored from {checkpoint_dir}")
+
+        n_chunks = 0
+        run_steps = 0
+        for ci, (idx, lo, hi, horizon) in enumerate(chunk_plans):
+            n_chunks += 1
+            run_steps = max(run_steps, horizon)
+            if ci < cursor:
+                continue               # committed before the crash: restored
+            sel = slice(lo, hi) if idx is None else idx[lo:hi]
+            gidx = np.arange(lo, hi) if idx is None else np.asarray(idx[lo:hi])
+            part = {k: v[sel] for k, v in arrs.items()}
+            n = hi - lo
+            res = _run_chunk_resilient(part, horizon, T, backend,
+                                       int(block_steps), tc, open_loop, shard,
+                                       quantum, device, verbose)
+            for f in SUMMARY_FIELDS:
                 out[f][sel] = res[f]
-            out["lat_hist"][sel] = res["lat_hist"]
-        bad = _quarantine(res, cols, gidx, failures)
-        if chunk_reduce:
-            completed = np.where(bad, 0, res["completed"]).astype(np.int32)
-            t_end = np.where(bad, 1.0, res["t_end"]).astype(np.float32)
-            cid = reduce.cell_ids[lo // group:hi // group]
-            _cell_update(wins, as_dev(completed), as_dev(t_end),
-                         as_dev(cid), group=group)
-        if verbose:
-            print(f"  stream chunk {ci + 1}/{len(chunk_plans)}: {n} "
-                  f"configs x {horizon} steps"
-                  + (f" [{int(bad.sum())} quarantined]" if bad.any()
-                     else ""))
-        if mgr is not None:
-            if failures and failures_path:
-                _write_failures(failures_path, C, failures)
-            mgr.save(ci + 1, {
-                "out": out,
-                "wins": (wins.cpu().numpy() if wins is not None
-                         else np.zeros((1,), np.int32)),
-                "cursor": np.int64(ci + 1),
-                "fingerprint": fp,
-                "failures_json": np.uint32(len(failures))})
-    if reduce is not None and not chunk_reduce:
-        badf = np.zeros(C, bool)
-        for f in _FINITE_FIELDS:
-            if f in out:
-                badf |= ~np.isfinite(np.asarray(out[f], np.float64))
-        wins = _cell_update(
-            new_wins(),
-            as_dev(np.where(badf, 0, out["completed"]).astype(np.int32)),
-            as_dev(np.where(badf, 1.0, out["t_end"]).astype(np.float32)),
-            as_dev(reduce.cell_ids), group=group)
+            if open_loop:
+                for f in OPEN_SUMMARY_FIELDS:
+                    out[f][sel] = res[f]
+                out["lat_hist"][sel] = res["lat_hist"]
+            with TR.span(on, "stream.reduce"):
+                bad = _quarantine(res, cols, gidx, failures)
+                if chunk_reduce:
+                    completed = np.where(bad, 0, res["completed"]).astype(
+                        np.int32)
+                    t_end = np.where(bad, 1.0, res["t_end"]).astype(
+                        np.float32)
+                    cid = reduce.cell_ids[lo // group:hi // group]
+                    _cell_update(wins, as_dev(completed), as_dev(t_end),
+                                 as_dev(cid), group=group)
+            if verbose:
+                print(f"  stream chunk {ci + 1}/{len(chunk_plans)}: {n} "
+                      f"configs x {horizon} steps"
+                      + (f" [{int(bad.sum())} quarantined]" if bad.any()
+                         else ""))
+            if mgr is not None:
+                if failures and failures_path:
+                    _write_failures(failures_path, C, failures)
+                mgr.save(ci + 1, {
+                    "out": out,
+                    "wins": (wins.cpu().numpy() if wins is not None
+                             else np.zeros((1,), np.int32)),
+                    "cursor": np.int64(ci + 1),
+                    "fingerprint": fp,
+                    "failures_json": np.uint32(len(failures))})
+        with TR.span(on, "stream.reduce"):
+            if reduce is not None and not chunk_reduce:
+                badf = np.zeros(C, bool)
+                for f in _FINITE_FIELDS:
+                    if f in out:
+                        badf |= ~np.isfinite(np.asarray(out[f], np.float64))
+                wins = _cell_update(
+                    new_wins(),
+                    as_dev(np.where(badf, 0, out["completed"]).astype(
+                        np.int32)),
+                    as_dev(np.where(badf, 1.0, out["t_end"]).astype(
+                        np.float32)),
+                    as_dev(reduce.cell_ids), group=group)
+            if wins is not None:
+                wins = wins.cpu().numpy()
 
-    if failures and failures_path:
-        _write_failures(failures_path, C, failures)
-    if failures:
-        warnings.warn(
-            f"sweep quarantined {len(failures)}/{C} configs with "
-            f"non-finite summaries"
-            + (f" (report: {failures_path})" if failures_path else "")
-            + "; their rows kept raw values but were excluded from the "
-            f"win-count reduction", stacklevel=2)
+        if failures and failures_path:
+            _write_failures(failures_path, C, failures)
+        if failures:
+            warnings.warn(
+                f"sweep quarantined {len(failures)}/{C} configs with "
+                f"non-finite summaries"
+                + (f" (report: {failures_path})" if failures_path else "")
+                + "; their rows kept raw values but were excluded from the "
+                f"win-count reduction", stacklevel=2)
 
-    return StreamResult(
-        n_configs=C, n_steps=run_steps, backend=backend,
-        dt=np.asarray(dt, np.float32), t_end=out["t_end"],
-        completed=out["completed"], spin_cpu=out["spin_cpu"],
-        wake_count=out["wake_count"], final_sws=out["final_sws"],
-        steps_run=out["steps_run"], fairness=out["fairness"],
-        chunk_size=int(chunk), n_chunks=n_chunks,
-        budget_mb=float(budget_mb), bytes_per_config=bpc,
-        wins=None if wins is None else wins.cpu().numpy(),
-        failures=failures, resumed_chunks=min(cursor, len(chunk_plans)),
-        lat_hist=out.get("lat_hist"), arrived=out.get("arrived"),
-        shed=out.get("shed"), departed=out.get("departed"),
-        slo_viol=out.get("slo_viol"), lat_sum=out.get("lat_sum"),
-        occ_int=out.get("occ_int"), in_flight=out.get("in_flight"))
+        return StreamResult(
+            n_configs=C, n_steps=run_steps, backend=backend,
+            dt=np.asarray(dt, np.float32), t_end=out["t_end"],
+            completed=out["completed"], spin_cpu=out["spin_cpu"],
+            wake_count=out["wake_count"], final_sws=out["final_sws"],
+            steps_run=out["steps_run"], fairness=out["fairness"],
+            chunk_size=int(chunk), n_chunks=n_chunks,
+            budget_mb=float(budget_mb), bytes_per_config=bpc,
+            wins=wins,
+            failures=failures, resumed_chunks=min(cursor, len(chunk_plans)),
+            lat_hist=out.get("lat_hist"), arrived=out.get("arrived"),
+            shed=out.get("shed"), departed=out.get("departed"),
+            slo_viol=out.get("slo_viol"), lat_sum=out.get("lat_sum"),
+            occ_int=out.get("occ_int"), in_flight=out.get("in_flight"))

@@ -12,10 +12,10 @@ host loop whose body is ONE kernel launch per ``block_steps`` timesteps
 (:func:`repro_torch.kernels.lock_sim.lock_sim_block` — the hand-written
 CUDA kernel for CUDA tensors, its plain version for CPU tensors, or the
 plain version everywhere with ``backend="ref"``).  After every block the
-loop reads one flag back — ``all(completed >= target_cs)`` — and **exits
-early** when every config has converged, exactly at the block boundaries
-where the reference's ``while_loop`` does, so ``steps_run`` and ``t_end``
-agree.  ``rollout="scan"`` is the per-step path: the GPS advance
+loop reads one count back — ``(completed >= target_cs).sum()`` — and
+**exits early** when every config has converged, exactly at the block
+boundaries where the reference's ``while_loop`` does, so ``steps_run`` and
+``t_end`` agree.  ``rollout="scan"`` is the per-step path: the GPS advance
 (:func:`~repro_torch.kernels.lock_sim.lock_sim_step`), the fault rewind
 (plain PyTorch, as in the reference) and one transition stage
 (:func:`~repro_torch.kernels.lock_sim.lock_transitions_step`) per step, two
@@ -43,6 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import trace as TR
 from repro_torch.device import Shard, resolve_device, shard_devices, splits
 from repro_torch.kernels import lock_sim as K
 from repro_torch.kernels import ref
@@ -224,17 +225,21 @@ def _check_kernel_ids(cols, open_loop: bool) -> None:
 class _ShardRun:
     """One shard's part of a rollout: its column tensors, its carry, and
     the :class:`~repro_torch.device.Shard` under whose device and stream
-    all of its work is queued."""
+    all of its work is queued; ``index`` and ``traced`` label its spans
+    (:mod:`repro_torch.trace`)."""
 
     def __init__(self, cols, shard: Shard, T: int, backend: str,
-                 open_loop: bool):
+                 open_loop: bool, index: int, traced: bool):
         self.cols, self.shard, self.open_loop = cols, shard, open_loop
+        self.index, self.traced = index, traced
+        self.rows = cols["policy"].shape[0]
         with shard.scope():
             if backend == "kernel":   # ids checked once here, not per launch
                 _check_kernel_ids(cols, open_loop)
             self.has_budget = P.discipline_flags(cols["policy"])[2] > 0
             self.prm = tuple(cols[f] for f in _PRM_FIELDS)
             self.state = _init_state(cols, T, open_loop)
+            self.reached = torch.empty_like(self.state[14])
 
     def scan(self, n_steps: int, advance, transitions):
         """A generator that queues one advance / rewind / transition triple
@@ -266,22 +271,28 @@ class _ShardRun:
         """Queue one launch of the block function from timestep
         ``step0``."""
         s, cols = self.state, self.cols
-        with self.shard.scope():
+        with TR.span(self.traced, "rollout.block", self.index), \
+                self.shard.scope():
             self.state = block(*s[:17], step0, cols["alpha"], cols["cores"],
                                self.has_budget, *self.prm,
                                n_sub_steps=n_sub_steps, limit=limit,
                                open_state=s[17:] if self.open_loop else None)
 
-    def converged(self, target_cs: int) -> bool:
-        """Whether every config of the shard has completed ``target_cs``
-        critical sections: one flag read back."""
-        with self.shard.scope():
-            return bool((self.state[14] >= target_cs).all())
+    def converged_rows(self, target_cs: int) -> int:
+        """How many configs of the shard have completed ``target_cs``
+        critical sections: one compare (into a buffer of the shard's, so
+        the sum reads int32 with no cast), one reduction, one count read
+        back."""
+        with TR.span(self.traced, "rollout.flag", self.index), \
+                self.shard.scope():
+            return int(torch.ge(self.state[14], target_cs,
+                                out=self.reached).sum(dtype=torch.int32))
 
     def result(self, executed: int, keep_per_thread: bool) -> dict:
         """The output dict (:func:`_out_dict`, reduced on the shard's
         device) as numpy arrays."""
-        with self.shard.scope():
+        with TR.span(self.traced, "stream.copy_back", self.index), \
+                self.shard.scope():
             out = _out_dict(self.state, executed, self.cols, keep_per_thread)
             return {k: v.cpu().numpy() for k, v in out.items()}
 
@@ -290,7 +301,8 @@ def _simulate_core(parts, n_steps: int, T: int, backend: str = "kernel",
                    rollout: str = "blocked",
                    block_steps: int = DEFAULT_BLOCK_STEPS,
                    target_cs: int = 0, early_exit: bool | None = None,
-                   keep_per_thread: bool = True, open_loop: bool = False):
+                   keep_per_thread: bool = True, open_loop: bool = False,
+                   trace: bool = False):
     """Simulate ``n_steps`` timesteps of every config of every shard.
     ``parts`` lists ``(cols, shard)`` pairs, each shard's column tensors on
     its device.  Returns the output dict as numpy arrays, the shards' rows
@@ -304,14 +316,17 @@ def _simulate_core(parts, n_steps: int, T: int, backend: str = "kernel",
     overshoot sub-steps into passthroughs.  With early exit on, the loop
     stops at the first block boundary where every config of every shard
     has completed ``target_cs`` critical sections; the test reads one
-    flag back per shard and block.  No shard stops before the others, so
-    every row runs the steps it runs unsharded.  ``early_exit=None``
-    means on iff ``target_cs > 0``.
+    count back per shard and block, the shards after the first one short
+    of it skipped (traced: every shard's, for the counters).  No shard
+    stops before the others, so every row runs the steps it runs
+    unsharded.  ``early_exit=None`` means on iff ``target_cs > 0``.
     ``rollout="scan"``: one advance / rewind / transition triple per step
     (two kernel launches on the kernel backend), no early exit — the
     parity reference.
     ``open_loop=True`` carries the 11 OPEN_STATE arrays as well (28 in
-    all) on every rollout and backend."""
+    all) on every rollout and backend.  ``trace`` is the entry's gate
+    read (:mod:`repro_torch.trace`): the spans and counters of the
+    rollout."""
     n_steps = int(n_steps)
     if early_exit is None:
         early_exit = target_cs > 0
@@ -319,33 +334,44 @@ def _simulate_core(parts, n_steps: int, T: int, backend: str = "kernel",
         raise ValueError(f"unknown backend {backend!r} (kernel|ref)")
     if rollout not in ("blocked", "scan"):
         raise ValueError(f"unknown rollout {rollout!r} (blocked|scan)")
-    runs = [_ShardRun(cols, shard, T, backend, open_loop)
-            for cols, shard in parts]
-
-    if rollout == "scan":
-        advance, transitions = _step_backends(backend)
-        if backend == "kernel":     # ids checked by _ShardRun
-            transitions = functools.partial(transitions, ids_checked=True)
-        steppers = [r.scan(n_steps, advance, transitions) for r in runs]
-        for _ in range(n_steps):
-            for s in steppers:
-                next(s)
-        executed = n_steps
-    else:
-        if backend == "kernel":     # ids checked by _ShardRun
-            block = functools.partial(K.lock_sim_block, ids_checked=True)
+    with TR.span(trace, "rollout.core"):
+        runs = [_ShardRun(cols, shard, T, backend, open_loop, i, trace)
+                for i, (cols, shard) in enumerate(parts)]
+        if rollout == "scan":
+            advance, transitions = _step_backends(backend)
+            if backend == "kernel":     # ids checked by _ShardRun
+                transitions = functools.partial(transitions, ids_checked=True)
+            steppers = [r.scan(n_steps, advance, transitions) for r in runs]
+            for _ in range(n_steps):
+                for s in steppers:
+                    next(s)
+            executed = n_steps
         else:
-            block = ref.lock_sim_block_ref
-        B = max(1, int(block_steps))
-        n_blocks = (n_steps + B - 1) // B
-        nblk, done = 0, False
-        while nblk < n_blocks and not done:
-            for r in runs:
-                r.block(block, nblk * B, B, n_steps)
-            nblk += 1
-            if early_exit:      # the exit is agreed across shards
-                done = all(r.converged(target_cs) for r in runs)
-        executed = min(nblk * B, n_steps)
+            if backend == "kernel":     # ids checked by _ShardRun
+                block = functools.partial(K.lock_sim_block, ids_checked=True,
+                                          trace=trace)
+            else:
+                block = ref.lock_sim_block_ref
+            B = max(1, int(block_steps))
+            n_blocks = (n_steps + B - 1) // B
+            nblk, done = 0, False
+            at = [0] * len(runs)    # rows at target when the block starts
+            while nblk < n_blocks and not done:
+                steps = min(B, n_steps - nblk * B)
+                for r, a in zip(runs, at):
+                    r.block(block, nblk * B, B, n_steps)
+                    TR.count(trace, "rollout.row_steps", r.rows * steps)
+                    if early_exit:
+                        TR.count(trace, "rollout.done_row_steps", a * steps)
+                nblk += 1
+                if early_exit:      # the exit is agreed across shards
+                    done = True
+                    for i, r in enumerate(runs):
+                        at[i] = r.converged_rows(target_cs)
+                        done = done and at[i] == r.rows
+                        if not (done or trace):
+                            break   # untraced, one shard short decides
+            executed = min(nblk * B, n_steps)
     outs = [r.result(executed, keep_per_thread) for r in runs]
     return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
@@ -370,24 +396,25 @@ def _shards(shard: bool | None, device: torch.device) -> list[Shard]:
 
 
 def _simulate_sharded(arrs, shards: list[Shard], n_steps: int, T: int,
-                      **kw) -> dict:
+                      trace: bool = False, **kw) -> dict:
     """Run an encoded column dict (numpy, ``encode_configs`` output plus
     ``dt``) split over ``shards``: the config axis padded to a multiple of
     the shard count (:func:`_pad_rows`), one contiguous block of rows
     carried to each shard's device, :func:`_simulate_core` over all of
-    them in lockstep, the padding sliced off.  ``kw`` are
-    :func:`_simulate_core`'s.  Returns the output dict as numpy arrays."""
+    them in lockstep, the padding sliced off.  ``trace`` is the entry's
+    gate read; ``kw`` are :func:`_simulate_core`'s.  Returns the output
+    dict as numpy arrays."""
     n = len(shards)
     C = arrs["policy"].shape[0]
     arrs = _pad_rows(arrs, C + (-C) % n)
     m = arrs["policy"].shape[0] // n
     parts = []
     for i, shard in enumerate(shards):
-        with shard.scope():
+        with TR.span(trace, "stream.copy_in", i), shard.scope():
             parts.append((columns_from_numpy(
                 {k: v[i * m:(i + 1) * m] for k, v in arrs.items()},
                 shard.device), shard))
-    out = _simulate_core(parts, n_steps, T, **kw)
+    out = _simulate_core(parts, n_steps, T, trace=trace, **kw)
     return {k: v[:C] for k, v in out.items()}
 
 
@@ -405,9 +432,10 @@ def simulate_columns(arrs, n_steps: int, *, T: int, backend: str = "kernel",
     ``_simulate_dyn`` and ``_simulate_sharded``."""
     return _simulate_sharded(
         arrs, _shards(shard, resolve_device(device)), int(n_steps), int(T),
-        backend=backend, rollout="blocked", block_steps=int(block_steps),
-        target_cs=int(target_cs), early_exit=int(target_cs) > 0,
-        keep_per_thread=keep_per_thread, open_loop=open_loop)
+        trace=TR.gate(), backend=backend, rollout="blocked",
+        block_steps=int(block_steps), target_cs=int(target_cs),
+        early_exit=int(target_cs) > 0, keep_per_thread=keep_per_thread,
+        open_loop=open_loop)
 
 # --------------------------------------------------------------------------
 # Scheduling heuristics + public API
@@ -744,6 +772,7 @@ def simulate_batch(configs, *, target_cs: int = 300,
     is valid — the open machinery runs but stays inert (rate 0 admits
     nothing) and every closed output is unchanged.
     """
+    traced = TR.gate()
     configs = list(configs)
     if open_loop is None:
         open_loop = any(c.open_loop for c in configs)
@@ -798,8 +827,9 @@ def simulate_batch(configs, *, target_cs: int = 300,
         block_steps = DEFAULT_BLOCK_STEPS
     tc = int(target_cs) if (early_exit and rollout == "blocked") else 0
     out = _simulate_sharded(arrs, _shards(shard, device), int(n_steps),
-                            int(T), backend=backend, rollout=rollout,
-                            block_steps=int(block_steps), target_cs=tc,
+                            int(T), trace=traced, backend=backend,
+                            rollout=rollout, block_steps=int(block_steps),
+                            target_cs=tc,
                             early_exit=tc > 0,
                             keep_per_thread=keep_per_thread,
                             open_loop=bool(open_loop))

@@ -41,6 +41,7 @@ import functools
 
 import torch
 
+from repro_torch import trace as TR
 from repro_torch.core import policy as P
 
 from . import build, ref
@@ -285,7 +286,7 @@ def lock_sim_block(st, rem, wake_at, slept, spun, ctr, ticket,
                    arr_rate, q_cap, slo, tb, fault, flt_rate, flt_scale,
                    park_cost, *,
                    n_sub_steps: int, limit=None, open_state=None,
-                   ids_checked: bool = False):
+                   ids_checked: bool = False, trace: bool = False):
     """Time-blocked rollout kernel; signature and results mirror
     :func:`repro_torch.kernels.ref.lock_sim_block_ref`: the 17 updated
     state arrays after ``n_sub_steps`` fused timesteps, and the 11
@@ -305,53 +306,57 @@ def lock_sim_block(st, rem, wake_at, slept, spun, ctr, ticket,
     that every id column lies in :data:`KERNEL_IDS` (the closed launch
     takes only the closed arrival row).  Each launch adds one to
     ``lock_sim_block.launches`` (closed variant) or
-    ``lock_sim_block.open_launches`` (open variant)."""
+    ``lock_sim_block.open_launches`` (open variant).  ``trace`` (the
+    entry's gate read, :mod:`repro_torch.trace`) puts either path in a
+    ``wrappers.launch`` span."""
     state = (st, rem, wake_at, slept, spun, ctr, ticket, completed_pt,
              sws, cnt, ewma, wuc, permits, nticket, completed, wake_count,
              spin_cpu)
     open_run = open_state is not None
     device = st.device
-    if device.type == "cpu":
-        return ref.lock_sim_block_ref(
-            *state, step0, alpha, cores, has_budget, policy, threads, dt,
-            wake, cs_lo, cs_hi, ncs_lo, ncs_hi, k, sws_max, spin_budget,
-            seed, oracle, workload, wl_period, wl_duty, wl_burst, wl_spread,
-            arrival, arr_rate, q_cap, slo, tb, fault, flt_rate, flt_scale,
-            park_cost, n_sub_steps=n_sub_steps, limit=limit,
-            open_state=open_state)
-    C, T = _thread_axis("st", st)
-    _check_state(state, C, T, device, len(state))
-    if open_run:
-        state = state + _check_open_state(open_state, C, T, device)
-    ctx = dict(step0=step0, limit=limit, alpha=alpha, cores=cores,
-               has_budget=has_budget, policy=policy, threads=threads, dt=dt,
-               wake=wake, cs_lo=cs_lo, cs_hi=cs_hi, ncs_lo=ncs_lo,
-               ncs_hi=ncs_hi, k=k, sws_max=sws_max, spin_budget=spin_budget,
-               seed=seed, oracle=oracle, workload=workload,
-               wl_period=wl_period, wl_duty=wl_duty, wl_burst=wl_burst,
-               wl_spread=wl_spread, tb=tb, fault=fault, flt_rate=flt_rate,
-               flt_scale=flt_scale, park_cost=park_cost, arrival=arrival,
-               arr_rate=arr_rate, q_cap=q_cap, slo=slo)
-    ctx_ptrs = _context_ptrs(ctx, _KERNEL_CTX + _OPEN_CTX, C, device,
-                             scalars=("step0", "limit"))
-    _require_cuda("lock_sim_block", device)
-    if not ids_checked:
-        check_id_columns(policy, oracle, workload, fault, tb, arrival,
-                         open_loop=open_run)
+    with TR.span(trace, "wrappers.launch"):
+        if device.type == "cpu":
+            return ref.lock_sim_block_ref(
+                *state, step0, alpha, cores, has_budget, policy, threads, dt,
+                wake, cs_lo, cs_hi, ncs_lo, ncs_hi, k, sws_max, spin_budget,
+                seed, oracle, workload, wl_period, wl_duty, wl_burst,
+                wl_spread, arrival, arr_rate, q_cap, slo, tb, fault, flt_rate,
+                flt_scale, park_cost, n_sub_steps=n_sub_steps, limit=limit,
+                open_state=open_state)
+        C, T = _thread_axis("st", st)
+        _check_state(state, C, T, device, len(state))
+        if open_run:
+            state = state + _check_open_state(open_state, C, T, device)
+        ctx = dict(step0=step0, limit=limit, alpha=alpha, cores=cores,
+                   has_budget=has_budget, policy=policy, threads=threads,
+                   dt=dt, wake=wake, cs_lo=cs_lo, cs_hi=cs_hi, ncs_lo=ncs_lo,
+                   ncs_hi=ncs_hi, k=k, sws_max=sws_max,
+                   spin_budget=spin_budget, seed=seed, oracle=oracle,
+                   workload=workload,
+                   wl_period=wl_period, wl_duty=wl_duty, wl_burst=wl_burst,
+                   wl_spread=wl_spread, tb=tb, fault=fault, flt_rate=flt_rate,
+                   flt_scale=flt_scale, park_cost=park_cost, arrival=arrival,
+                   arr_rate=arr_rate, q_cap=q_cap, slo=slo)
+        ctx_ptrs = _context_ptrs(ctx, _KERNEL_CTX + _OPEN_CTX, C, device,
+                                 scalars=("step0", "limit"))
+        _require_cuda("lock_sim_block", device)
+        if not ids_checked:
+            check_id_columns(policy, oracle, workload, fault, tb, arrival,
+                             open_loop=open_run)
 
-    out = tuple(torch.empty_like(t) for t in state)
-    step0_s = 0 if isinstance(step0, torch.Tensor) else int(step0)
-    limit_s = (2**31 - 1 if limit is None or isinstance(limit, torch.Tensor)
-               else int(limit))
-    _launch("lock_sim_block", device,
-            _ptr_array([t.data_ptr() for t in state]),
-            _ptr_array([t.data_ptr() for t in out]), _ptr_array(ctx_ptrs),
-            step0_s, limit_s, C, T, int(n_sub_steps), int(open_run))
-    if open_run:
-        lock_sim_block.open_launches += 1
-    else:
-        lock_sim_block.launches += 1
-    return out
+        out = tuple(torch.empty_like(t) for t in state)
+        step0_s = 0 if isinstance(step0, torch.Tensor) else int(step0)
+        limit_s = (2**31 - 1 if limit is None
+                   or isinstance(limit, torch.Tensor) else int(limit))
+        _launch("lock_sim_block", device,
+                _ptr_array([t.data_ptr() for t in state]),
+                _ptr_array([t.data_ptr() for t in out]), _ptr_array(ctx_ptrs),
+                step0_s, limit_s, C, T, int(n_sub_steps), int(open_run))
+        if open_run:
+            lock_sim_block.open_launches += 1
+        else:
+            lock_sim_block.launches += 1
+        return out
 
 
 def lock_sim_step(tstate, rem, alpha, cores, dt, has_budget):
